@@ -6,7 +6,9 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. device line: the card's name and power limit from ``nvidia-smi``, and
    the torch / CUDA versions;
-2. build: ``nvcc`` builds the wastage kernels from ``src/`` (seconds);
+2. build: ``nvcc`` builds every kernel source from ``src/``, one process
+   per source, all started together (seconds); this phase reports the
+   wastage kernels;
 3. kernel parity on the tests' sweeps: ``oom_probe`` and ``wastage_eval``
    on CUDA tensors against their plain PyTorch versions on the same
    tensors (``viol`` exact; floats rtol 1e-4 / atol 1e-2, the reduction
@@ -24,7 +26,31 @@ Phases (any failure exits non-zero; nothing is caught):
    seeded engine-layout inputs (sentinel-padded slots, zero-length pad
    lanes), same checks as phase 3.  Then the kernels are timed (CUDA
    events, median after warm-up, L2 flushed) at phase 5's attempt-1 probe
-   shapes, beside their byte bound.
+   shapes, beside their byte bound;
+7. build of the LM kernels ``ssd.cu`` and ``flash_attention.cu`` (started
+   in phase 2);
+8. LM kernel parity on the tests' sweeps, each in float32 and bfloat16:
+   ``flash_attention`` (MQA, Sq 64 with Skv 192, window 64, unaligned
+   S = 100, hd = 80; 2e-5 in f32, 2e-2 in bf16) and ``ssd`` (chunks 32 /
+   64 / 128, padded S = 96, G = 2 and 4; 5e-3, y 2e-2 in bf16) against
+   their plain versions on the same CUDA tensors;
+9. serving at full width: zamba2-2.7b (54 Mamba2 blocks, the shared
+   attention block after every 6th), weights from ``init_params`` on the
+   card with seed 0; ``serve_demo``'s loop (prefill, then greedy
+   ``decode_step``) for 4 requests x 2048 tokens and 3 x 1000, 32 new tokens
+   each, after one uncounted warm-up request.  Prefill seconds, decode
+   tokens/s, peak memory; launches per prefill must be exactly one ``ssd``
+   per Mamba2 block and one ``flash_attention`` per shared-block
+   application (54 and 9), and none in decode; all logits finite;
+10. card vs CPU at full width and reduced depth (6 Mamba2 blocks + the
+   shared block), B = 1, S = 300 and 4 decode steps fed the same tokens:
+   logits and every cache entry within 1e-3 in float32 (atol scaled down
+   for tensors smaller than 1), and in bf16 within 3e-2 of each element
+   plus 3e-2 of the tensor's largest value (see ``card_vs_cpu``);
+11. LM kernel parity at every shape phase 9 launched, on seeded inputs;
+   then each LM kernel is timed at the 4 x 2048 shapes beside its plain
+   version, its bound (max of bf16 FLOPs at 989 TFLOP/s and bytes at
+   3.35 TB/s) and, for attention, ``scaled_dot_product_attention``.
 
 The card's ``nvidia-smi`` line comes two lines before the end, then
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -45,10 +71,25 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM float32, outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 RTOL, ATOL = 1e-4, 1e-2       # kernel vs plain: reduction order only
-SOURCE = "src/repro_torch/kernels/wastage/csrc/wastage.cu"
+# kernel vs plain, (rtol, atol) by dtype: the reference tests' tolerances
+FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
+SSD_TOL = {torch.float32: (5e-3, 5e-3), torch.bfloat16: (2e-2, 2e-2)}
+WASTAGE = "src/repro_torch/kernels/wastage/csrc/wastage.cu"
+SOURCES = {"oom_probe": WASTAGE, "wastage_eval": WASTAGE,
+           "ssd": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+           "flash_attention":
+               "src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu"}
 REPLACES = {"oom_probe": "src/repro/kernels/wastage/kernel.py:67",
-            "wastage_eval": "src/repro/kernels/wastage/kernel.py:27"}
+            "wastage_eval": "src/repro/kernels/wastage/kernel.py:27",
+            "ssd": "src/repro/kernels/ssd/kernel.py:28",
+            "flash_attention":
+                "src/repro/kernels/flash_attention/kernel.py:33"}
+ARCH = "zamba2-2.7b"
+SERVE_BATCHES = ((4, 2048), (3, 1000))  # (requests, prompt tokens)
+NEW_TOKENS = 32
 
 
 def log(*a):
@@ -94,25 +135,33 @@ def to_cuda(starts, peaks, mems, lengths):
             torch.as_tensor(np.asarray(lengths, np.int32), device="cuda"))
 
 
-class ProbeShapes:
-    """While active, records the ``(B, K, T, dt)`` of every ``oom_probe``
-    call (the engine looks the wrapper up in ``ops`` at each call).  It
-    only records: launches and their counts stay the wrapper's own."""
+class ShapeRecorder:
+    """While active, records ``key(*args, **kwargs)`` of every call of
+    ``module.name`` (its callers look the wrapper up in the module at each
+    call).  It only records: launches and their counts stay the wrapper's
+    own."""
 
-    def __init__(self, ops):
-        self.ops, self.seen = ops, set()
+    def __init__(self, module, name, key):
+        self.module, self.name, self.key, self.seen = module, name, key, set()
 
     def __enter__(self):
-        orig = self.orig = self.ops.oom_probe
+        orig = self.orig = getattr(self.module, self.name)
 
-        def recorded(starts, peaks, mems, lengths, dt=1.0):
-            self.seen.add((*starts.shape, mems.shape[1], float(dt)))
-            return orig(starts, peaks, mems, lengths, dt=dt)
-        self.ops.oom_probe = recorded
+        def recorded(*args, **kwargs):
+            self.seen.add(self.key(*args, **kwargs))
+            return orig(*args, **kwargs)
+        setattr(self.module, self.name, recorded)
         return self
 
     def __exit__(self, *exc):
-        self.ops.oom_probe = self.orig
+        setattr(self.module, self.name, self.orig)
+
+
+def probe_shapes(ops):
+    """Records the ``(B, K, T, dt)`` of every ``oom_probe`` call."""
+    return ShapeRecorder(ops, "oom_probe",
+                         lambda s, p, m, n, dt=1.0:
+                         (*s.shape, m.shape[1], float(dt)))
 
 
 def main_path_cases(shapes, seed=0):
@@ -230,7 +279,7 @@ def kernel_timings(groups, launches):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = nops / F32_OPS_PER_S * 1e3
         out.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "ms": sum(ms), "plain_ms": sum(plain_ms),
             "bound_ms": max(t_bytes, t_ops),
@@ -266,12 +315,283 @@ def compare_runs(card, cpu, label):
             raise AssertionError(f"{label}/{fam}: chosen k {ka} vs {kb}")
 
 
+# ------------------------------------------------------------- phases 8, 11
+def _close(got, want, tol, what, err, name):
+    """Hold a kernel output against its plain version; fold the largest
+    absolute error into ``err[name]``."""
+    rtol, atol = tol
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol, msg=lambda m: f"{what}: {m}")
+    err[name] = max(err[name], float((got.float() - want.float())
+                                     .abs().max()))
+
+
+def flash_case(rng, B, Sq, Skv, H, K, hd, dtype, causal=True, window=None):
+    f = lambda *sz: torch.as_tensor(  # noqa: E731
+        rng.standard_normal(sz), dtype=torch.float32).to("cuda", dtype)
+    return (f(B, Sq, H, hd), f(B, Skv, K, hd), f(B, Skv, K, hd), causal,
+            window)
+
+
+def ssd_case(rng, B, S, H, P, G, N, chunk, dtype):
+    f = lambda a: torch.as_tensor(  # noqa: E731
+        a, dtype=torch.float32).to("cuda", dtype)
+    return (f(rng.standard_normal((B, S, H, P)) * 0.5),
+            f(-np.abs(rng.standard_normal((B, S, H))) * 0.3),
+            f(rng.standard_normal((B, S, G, N)) * 0.5),
+            f(rng.standard_normal((B, S, G, N)) * 0.5), chunk)
+
+
+def lm_parity_cases():
+    """The LM kernel tests' sweeps, each in float32 and bfloat16."""
+    rng = np.random.default_rng(0)
+    flash, ssd = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in [(1, 128, 128, 4, 2, 64), (2, 64, 192, 4, 4, 32),
+                      (1, 256, 256, 8, 2, 16), (2, 128, 128, 2, 1, 64)]:
+            for causal in (True, False):
+                flash.append((f"{shape} causal={causal} {dtype}",
+                              flash_case(rng, *shape, dtype, causal)))
+        flash.append((f"window=64 {dtype}", flash_case(
+            rng, 1, 256, 256, 2, 2, 32, dtype, window=64)))
+        flash.append((f"unaligned S=100 {dtype}", flash_case(
+            rng, 1, 100, 100, 2, 2, 32, dtype)))
+        flash.append((f"hd=80 {dtype}", flash_case(
+            rng, 1, 96, 96, 4, 4, 80, dtype)))
+        for shape in [(1, 128, 2, 16, 1, 32, 32), (2, 256, 4, 64, 2, 64, 64),
+                      (1, 96, 2, 32, 1, 16, 32), (1, 128, 8, 16, 4, 16, 128),
+                      (1, 32, 2, 8, 1, 8, 16)]:
+            ssd.append((f"{shape} {dtype}", ssd_case(rng, *shape, dtype)))
+    return flash, ssd
+
+
+def check_lm_kernels(flash, ssd, err):
+    """Hold both LM kernels against their plain versions on the cases."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    for name, (q, k, v, causal, window) in flash:
+        got = fops.flash_attention(q, k, v, causal=causal, window=window)
+        want = fops.ref.flash_attention(q, k, v, causal=causal,
+                                        window=window)
+        torch.cuda.synchronize()
+        _close(got, want, FLASH_TOL[q.dtype], f"flash_attention {name}",
+               err, "flash_attention")
+    for name, (X, A, Bm, Cm, chunk) in ssd:
+        y, st = sops.ssd(X, A, Bm, Cm, chunk)
+        yr, sr = sops.ref.ssd(X, A, Bm, Cm, chunk)
+        torch.cuda.synchronize()
+        _close(y, yr, SSD_TOL[X.dtype], f"ssd y {name}", err, "ssd")
+        _close(st, sr, SSD_TOL[torch.float32], f"ssd state {name}", err,
+               "ssd")
+
+
+def lm_recorders():
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    return (ShapeRecorder(sops, "ssd", lambda X, A, Bm, Cm, chunk: (
+                *X.shape, *Bm.shape[2:], chunk, X.dtype)),
+            ShapeRecorder(fops, "flash_attention", lambda q, k, v, **kw: (
+                q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                q.shape[3], kw.get("causal"), kw.get("window"), q.dtype)))
+
+
+def phase_shape_cases(ssd_shapes, flash_shapes):
+    """Seeded inputs at every shape the serving phase launched."""
+    rng = np.random.default_rng(1)
+    flash = [(f"serving {s}", flash_case(rng, *s[:6], s[8], s[6], s[7]))
+             for s in sorted(flash_shapes, key=str)]
+    ssd = [(f"serving {s}", ssd_case(rng, *s))
+           for s in sorted(ssd_shapes, key=str)]
+    return flash, ssd
+
+
+# ------------------------------------------------------------- phase 9
+def serve(model, cfg, batches, new_tokens, seed):
+    """``serve_demo``'s loop (``launch/serve.py``) on the card: per batch a
+    prefill, then greedy decode steps.  Returns one record per batch."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.runtime import make_decode_step, make_prefill_step
+    rng = np.random.default_rng(seed)
+    decode = make_decode_step(cfg)
+    out = []
+    for Bsz, S in batches:
+        prefill = make_prefill_step(cfg, capacity=S + new_tokens)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (Bsz, S)),
+                               dtype=torch.int32, device="cuda")
+        before = (sops.LAUNCHES["ssd"], fops.LAUNCHES["flash_attention"])
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, {"tokens": toks})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        launched = (sops.LAUNCHES["ssd"] - before[0],
+                    fops.LAUNCHES["flash_attention"] - before[1])
+        finite = torch.isfinite(logits).all()
+        tok = logits[:, -1].argmax(-1)
+        for t in range(new_tokens):
+            pos = torch.full((Bsz,), S + t, dtype=torch.int32, device="cuda")
+            logits, cache = decode(model, {"tokens": tok}, cache, pos)
+            finite &= torch.isfinite(logits).all()
+            tok = logits[:, -1].argmax(-1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        decode_launches = (sops.LAUNCHES["ssd"] - before[0] - launched[0],
+                           fops.LAUNCHES["flash_attention"] - before[1]
+                           - launched[1])
+        out.append({"requests": Bsz, "prompt": S, "new_tokens": new_tokens,
+                    "prefill_s": t1 - t0, "decode_s": t2 - t1,
+                    "decode_tok_per_s": Bsz * new_tokens / (t2 - t1),
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "prefill_launches": {"ssd": launched[0],
+                                         "flash_attention": launched[1]},
+                    "decode_launches": {"ssd": decode_launches[0],
+                                        "flash_attention":
+                                            decode_launches[1]},
+                    "finite": bool(finite), "last_tokens": tok.tolist()})
+        del cache, logits
+    return out
+
+
+# ------------------------------------------------------------- phase 10
+def card_vs_cpu(dtype_name, seed=1, S=300, steps=4):
+    """Full width, 6 Mamba2 blocks + the shared block: the card's prefill
+    and decode against the plain path on the CPU, same weights and tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=6, dtype=dtype_name)
+    card = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    cpu = init_params(cfg, None, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)),
+                           dtype=torch.int32)
+    feeds = torch.as_tensor(rng.integers(0, cfg.vocab, (steps, 1)),
+                            dtype=torch.int32)
+    runs = {}
+    for dev, model in (("cuda", card), ("cpu", cpu)):
+        logits, cache = prefill(model, cfg, {"tokens": toks.to(dev)},
+                                capacity=S + steps)
+        outs = [logits]
+        for t in range(steps):
+            pos = torch.full((1,), S + t, dtype=torch.int32, device=dev)
+            logits, cache = decode_step(model, cfg,
+                                        {"tokens": feeds[t].to(dev)}, cache,
+                                        pos)
+            outs.append(logits)
+        runs[dev] = (outs, cache)
+    pairs = [(f"logits {i}", a.cpu(), b) for i, (a, b) in
+             enumerate(zip(runs["cuda"][0], runs["cpu"][0]))]
+    for k, b in runs["cpu"][1].items():
+        a = runs["cuda"][1][k].cpu()
+        if k == "kv_positions":
+            if not torch.equal(a, b):
+                raise AssertionError(f"{dtype_name} kv_positions differ")
+            continue
+        pairs.append((f"cache {k}", a.float(), b.float()))
+    worst = {}
+    for what, a, b in pairs:
+        scale = float(b.abs().max())
+        if dtype_name == "float32":
+            # never looser than 1e-3, and tighter for small tensors (the
+            # SSM states are ~1e-4 at this init)
+            rtol, atol = 1e-3, 1e-3 * min(1.0, scale)
+        else:
+            # bf16: 3e-2 of the element and of the tensor's largest value.
+            # cuBLAS and the CPU round differently, one bf16 ulp here and
+            # there through a bf16 residual stream, which leaves a few
+            # tenths of a percent of full-width logits beyond an absolute
+            # 3e-2 while float32 agrees to ~2e-5.
+            rtol, atol = 3e-2, 3e-2 * scale
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{dtype_name} {what}: {m}")
+        diff = float((a - b).abs().max())
+        rel = float(torch.linalg.vector_norm(a - b)
+                    / torch.linalg.vector_norm(b).clamp_min(1e-30))
+        worst[what] = (diff, scale, rel)
+    return worst
+
+
+# ------------------------------------------------------------- phase 11
+def lm_kernel_timings(launches, err):
+    """Both LM kernels at the 4 x 2048 serving shapes, bf16, beside their
+    plain versions, their bounds and (attention) the library call."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    cfg = get_config(ARCH)
+    Bsz, S = SERVE_BATCHES[0]
+    rng = np.random.default_rng(2)
+    bf = torch.bfloat16
+    out = []
+
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v, _, _ = flash_case(rng, Bsz, S, S, H, K, hd, bf)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ms = time_ms(lambda: fops.flash_attention(q, k, v, causal=True))
+    plain_ms = time_ms(lambda: fops.ref.flash_attention(q, k, v,
+                                                        causal=True))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    # each input read once, the output written once; q.k and p.v over the
+    # causal pairs only (the kernel skips tiles above the frontier)
+    nbytes = (2 * Bsz * S * H * hd + 2 * Bsz * S * K * hd) * 2
+    nops = Bsz * H * (S * (S + 1) // 2) * 4 * hd
+    out.append(_entry("flash_attention", launches, err, ms, plain_ms,
+                      lib_ms, nbytes, nops,
+                      f"causal prefill, q/k/v ({Bsz}, {S}, {H}, {hd}) bf16"))
+
+    Hs, P, G, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_groups, \
+        cfg.ssm_state
+    X, A, Bm, Cm, chunk = ssd_case(rng, Bsz, S, Hs, P, G, N,
+                                      cfg.ssm_chunk, bf)
+    ms = time_ms(lambda: sops.ssd(X, A, Bm, Cm, chunk))
+    plain_ms = time_ms(lambda: sops.ref.ssd(X, A, Bm, Cm, chunk))
+    # x, a, B, C read once; y (bf16) and the f32 final state written once;
+    # per 64-row sub-chunk of each head: C.B and G.x over the lower
+    # triangle, C.state and the state update in full
+    nbytes = (2 * Bsz * S * Hs * P + Bsz * S * Hs + 2 * Bsz * S * G * N) \
+        * 2 + Bsz * Hs * P * N * 4
+    T = sops.SUB_CHUNK
+    n_sub = -(-S // T)
+    nops = Bsz * Hs * n_sub * (T * (T + 1) * (N + P) + 4 * T * P * N)
+    out.append(_entry("ssd", launches, err, ms, plain_ms, None, nbytes,
+                      nops, f"prefill scan, x ({Bsz}, {S}, {Hs}, {P}), "
+                            f"G={G} N={N} bf16"))
+    return out
+
+
+def _entry(name, launches, err, ms, plain_ms, lib_ms, nbytes, nops, timed):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / BF16_OPS_PER_S * 1e3
+    return {"name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms, "bytes": nbytes, "ops": nops,
+            "timed": timed}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.kernels.wastage import build, ops
+    # full float32 products: the f32 tolerances hold no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.kernels.wastage import ops
+    from repro_torch.models import init_params
     from repro_torch.sched import evaluate_workflow
     from repro_torch.traces import eager, sarek
 
@@ -285,19 +605,22 @@ def main() -> int:
     log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
         f"| {kind} x {torch.cuda.device_count()}")
 
-    # 2. build
-    path, secs = build.build()
+    # 2. build: every source at once, one nvcc each
+    t0 = time.perf_counter()
+    built = build.build_all([ops.SOURCE, sops.SOURCE, fops.SOURCE])
+    build_wall = time.perf_counter() - t0
+    path, secs = built["wastage"]
     log(f"phase 2: built {os.path.relpath(path, ROOT)} in {secs:.2f} s")
 
     # 3. kernel parity on the tests' sweeps
-    err = {"oom_probe": 0.0, "wastage_eval": 0.0}
+    err = dict.fromkeys(REPLACES, 0.0)
     cases = parity_cases()
     check_kernels(cases, err)
     log(f"phase 3: kernel == plain on {len(cases)} cases, max abs err {err}")
 
     # 4. main path at paper size, card vs the plain path on the CPU
     kw = dict(seed=0, train_frac=0.5, k=4, machine_memory=128.0)
-    shapes = ProbeShapes(ops)
+    shapes = probe_shapes(ops)
     ops.reset_launches()
     with shapes:
         card = {wf.name: evaluate_workflow(wf, device="cuda", **kw)
@@ -348,6 +671,90 @@ def main() -> int:
     kernels = kernel_timings(groups, launches)
     for k in kernels:
         k["max_abs_err"] = err[k["name"]]
+
+    # 7. the LM kernels, built beside the wastage kernels in phase 2
+    log("phase 7: built " + ", ".join(
+        f"{os.path.relpath(built[n][0], ROOT)} in {built[n][1]:.2f} s"
+        for n in ("ssd", "flash_attention")) +
+        f" (all three sources in parallel: {build_wall:.2f} s wall)")
+
+    # 8. LM kernel parity on the tests' sweeps, f32 and bf16
+    flash, ssd = lm_parity_cases()
+    check_lm_kernels(flash, ssd, err)
+    log(f"phase 8: kernel == plain on {len(flash)} flash_attention and "
+        f"{len(ssd)} ssd cases, max abs err ssd {err['ssd']:.3g} "
+        f"flash_attention {err['flash_attention']:.3g}")
+    del flash, ssd
+
+    # 9. serving at full width: serve_demo's loop through the port
+    cfg = get_config(ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 9: {ARCH} init_params on the card: {n_params} parameters "
+        f"in {time.perf_counter() - t0:.2f} s")
+    serve(model, cfg, ((1, 256),), 2, seed=99)  # warm-up, not counted
+    for o in (ops, sops, fops):
+        o.reset_launches()
+    rec_ssd, rec_flash = lm_recorders()
+    with rec_ssd, rec_flash:
+        records = serve(model, cfg, SERVE_BATCHES, NEW_TOKENS, seed=0)
+    lm_launches = {"ssd": sops.LAUNCHES["ssd"],
+                   "flash_attention": fops.LAUNCHES["flash_attention"]}
+    want = {"ssd": cfg.n_layers,
+            "flash_attention": cfg.n_layers // cfg.shared_attn_every}
+    for r in records:
+        log(f"phase 9: {r['requests']} x {r['prompt']} tokens: prefill "
+            f"{r['prefill_s']:.4f} s, decode {r['new_tokens']} tokens in "
+            f"{r['decode_s']:.4f} s = {r['decode_tok_per_s']:.1f} tokens/s,"
+            f" peak {r['peak_gb']:.2f} GB; launches per prefill "
+            f"{r['prefill_launches']}, in decode {r['decode_launches']}; "
+            f"logits finite {r['finite']}")
+        if r["prefill_launches"] != want:
+            raise AssertionError(f"prefill launched {r['prefill_launches']}"
+                                 f", want one per block: {want}")
+        if any(r["decode_launches"].values()):
+            raise AssertionError("decode launched a prefill kernel")
+        if not r["finite"]:
+            raise AssertionError("non-finite logits")
+    if min(lm_launches.values()) <= 0:
+        raise AssertionError(f"serving launched {lm_launches}")
+    log(f"phase 9: main-path launches {lm_launches}; max memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    log("phase 9: records " + json.dumps(records))
+    del model
+    torch.cuda.empty_cache()
+
+    # 10. card vs CPU at full width, reduced depth
+    for dtype_name in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        worst = card_vs_cpu(dtype_name)
+        diff = max(d for d, _, _ in worst.values())
+        rel = max(r for _, _, r in worst.values())
+        log(f"phase 10: {ARCH} 6 Mamba2 blocks + shared block, {dtype_name}"
+            f": card == cpu on prefill(300) + 4 decode steps (logits and "
+            f"caches), max abs diff {diff:.3g}, max relative L2 {rel:.3g} "
+            f"({time.perf_counter() - t0:.1f} s); per tensor (max abs "
+            f"diff, max abs value, relative L2) "
+            + json.dumps({k: [float(f"{x:.3g}") for x in v]
+                          for k, v in worst.items()}))
+
+    # 11. LM kernel parity at every shape phase 9 launched, then timings
+    flash, ssd = phase_shape_cases(rec_ssd.seen, rec_flash.seen)
+    check_lm_kernels(flash, ssd, err)
+    log(f"phase 11: kernel == plain at the {len(ssd)} ssd and {len(flash)} "
+        f"flash_attention shapes serving launched "
+        f"{sorted(rec_ssd.seen, key=str)} {sorted(rec_flash.seen, key=str)}"
+        f", max abs err ssd {err['ssd']:.3g} flash_attention "
+        f"{err['flash_attention']:.3g}")
+    del flash, ssd
+    kernels += lm_kernel_timings(lm_launches, err)
+    for k in kernels[2:]:
+        log(f"phase 11: {k['name']} {k['ms']:.4f} ms (plain "
+            f"{k['plain_ms']:.4f}, library {k['library_ms']}, bound "
+            f"{k['bound_ms']:.4f} by {k['bound_by']})")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

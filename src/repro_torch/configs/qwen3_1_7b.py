@@ -1,0 +1,8 @@
+"""qwen3-1.7b [dense] — qk_norm, GQA.  [hf:Qwen/Qwen3-8B; hf]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-1.7b", family="dense",
+    n_layers=28, d_model=2048, n_heads=16, n_kv_heads=8,
+    d_ff=6144, vocab=151936, head_dim=128, qk_norm=True,
+)

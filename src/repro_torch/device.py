@@ -2,7 +2,8 @@
 
 Every entry point (``evaluate_workflow``, ``run_paper_experiment``,
 ``simulate_fleet(_many)``, ``bucket_traces``, ``registry.make`` and the
-method classes) takes ``device=None``: None means the card.  Without CUDA
+method classes; ``models.init_params``, ``load_jax_params`` and
+``init_cache``) takes ``device=None``: None means the card.  Without CUDA
 that is an error, never a silent move to the CPU — callers that want the
 plain PyTorch path on the CPU (the tests) ask for it with ``device="cpu"``.
 """

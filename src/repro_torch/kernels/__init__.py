@@ -1,10 +1,15 @@
 """Hand-written Hopper kernels for the package's hot spots.
 
 * ``wastage`` — KS+ fleet-scale OOM probe and success wastage
-  (``csrc/wastage.cu``, CUDA C++ for ``sm_90a``).
+  (``csrc/wastage.cu``);
+* ``ssd`` — the Mamba2 chunked SSD scan (``csrc/ssd.cu``);
+* ``flash_attention`` — causal / windowed GQA attention forward
+  (``csrc/flash_attention.cu``).
 
-Each kernel ships ``csrc/`` (the CUDA source), ``build.py`` (``nvcc`` into
-``build/repro_torch_kernels/``, loaded with ``ctypes`` at first launch),
-``ops.py`` (the checked wrapper with its launch count) and ``ref.py`` (the
-plain PyTorch version, used for CPU tensors and as the kernel's oracle).
+All three are CUDA C++ for ``sm_90a``.  Each kernel ships ``csrc/`` (the
+CUDA source), ``ops.py`` (the checked wrapper with its launch count) and
+``ref.py`` (the plain PyTorch version, used for CPU tensors and as the
+kernel's oracle); :mod:`repro_torch.kernels.build` compiles each source with
+``nvcc`` into ``build/repro_torch_kernels/`` and loads it with ``ctypes`` at
+its first launch.
 """

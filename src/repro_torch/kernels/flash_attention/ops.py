@@ -1,0 +1,98 @@
+"""Wrapper of the flash-attention kernel: checks, routing, launch count.
+
+:func:`flash_attention` is the port's counterpart of the reference's
+``models/attention.py::chunked_gqa_attention`` on prefill (``q_offset`` 0)
+and of its Pallas drop-in ``kernels/flash_attention/ops.py``, in the model
+layout.  A tensor on the CPU goes to the plain version
+(:mod:`repro_torch.kernels.flash_attention.ref`); a tensor on CUDA goes to
+the hand-written kernel (``csrc/flash_attention.cu``) or raises.
+``LAUNCHES["flash_attention"]`` counts kernel launches and nothing else.
+
+Like the Pallas kernel, the CUDA kernel scales q in float32 and computes
+the softmax and both products in float32; it takes the head dim as it is
+(hd <= 128, zamba2's 80 included), where the TPU wrapper pads it to 128,
+and masks ragged sequence tails itself, so nothing is padded or copied.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention import ref
+
+__all__ = ["LAUNCHES", "SOURCE", "reset_launches", "flash_attention"]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+MAX_HD = 128  # kMaxHd in csrc/flash_attention.cu
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (q, k, v, out, B, Sq, Skv, H, K, hd, causal, window or 0, scale, stream)
+_ARGS = [_P] * 4 + [_I] * 8 + [_F, _P]
+SIGNATURES = {"ksp_flash_attention_f32": _ARGS,
+              "ksp_flash_attention_bf16": _ARGS}
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+LAUNCHES = {"flash_attention": 0}
+
+
+def reset_launches() -> None:
+    LAUNCHES["flash_attention"] = 0
+
+
+def _check(q, k, v, window):
+    """Validate the kernel contract; return ``(B, Sq, Skv, H, K, hd)``."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor")
+        if t.dtype not in _SUFFIX:
+            raise TypeError(f"{name} must be float32 or bfloat16, "
+                            f"got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-d (B, S, heads, hd)")
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    if k.shape != (B, Skv, K, hd) or v.shape != k.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if min(B, Sq, Skv, H, K, hd) < 1 or H % K:
+        raise ValueError(f"need positive sizes and K | H, got H={H} K={K}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be positive, got {window}")
+    if q.device.type == "cuda" and hd > MAX_HD:
+        raise ValueError(f"the kernel takes hd <= {MAX_HD}, got {hd}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    return B, Sq, Skv, H, K, hd
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """GQA attention forward in the model layout.
+
+    q: (B,Sq,H,hd); k/v: (B,Skv,K,hd), query head h reads KV head h // G;
+    causal mask aligned top-left (k <= q); optional window (k > q - window).
+    All of one dtype (float32 or bfloat16), contiguous, on one device.
+    Returns (B,Sq,H,hd) in q's dtype.
+    """
+    B, Sq, Skv, H, K, hd = _check(q, k, v, window)
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    out = torch.empty_like(q)
+    lib = build.load(SOURCE, SIGNATURES)
+    build.launch(lib, f"ksp_flash_attention_{_SUFFIX[q.dtype]}", q.device,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 B, Sq, Skv, H, K, hd, int(causal), window or 0,
+                 1.0 / hd ** 0.5)
+    LAUNCHES["flash_attention"] += 1
+    return out

@@ -9,11 +9,25 @@ its kernel is launched, so a run can show that it went through the kernel.
 
 from __future__ import annotations
 
+import ctypes
+from pathlib import Path
+
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.wastage import ref
 
-__all__ = ["LAUNCHES", "reset_launches", "oom_probe", "wastage_eval"]
+__all__ = ["LAUNCHES", "SOURCE", "reset_launches", "oom_probe",
+           "wastage_eval"]
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "wastage.cu"
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry points: (starts, peaks, mems, lengths, B, K, T, dt, outputs...,
+# stream)
+SIGNATURES = {
+    "ksp_oom_probe": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P, _P, _P],
+    "ksp_wastage_eval": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
+}
 
 LAUNCHES = {"oom_probe": 0, "wastage_eval": 0}
 MAX_K = 32  # kMaxK in csrc/wastage.cu
@@ -58,12 +72,7 @@ def _check(starts, peaks, mems, lengths):
 
 def _launch(op: str, device: torch.device, *args) -> None:
     """Call the C entry point ``ksp_<op>`` on ``device``'s current stream."""
-    from repro_torch.kernels.wastage.build import load
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(load(), f"ksp_{op}")(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{op}: kernel launch failed, cudaError {rc}")
+    build.launch(build.load(SOURCE, SIGNATURES), f"ksp_{op}", device, *args)
     LAUNCHES[op] += 1
 
 

@@ -4,7 +4,8 @@
   ``jax`` or the reference package ``repro``.
 * Entry points called without ``device`` mean the card: without CUDA they
   raise instead of running on the CPU.
-* A CPU tensor takes the plain version of a kernel and counts no launch.
+* A CPU tensor takes the plain version of a kernel and counts no launch
+  (wastage, SSD and flash attention).
 """
 
 import ast
@@ -14,10 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import smoke_config
 from repro_torch.core import registry
 from repro_torch.core.fleet import bucket_traces, simulate_fleet
 from repro_torch.device import resolve_device
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.wastage import ops
+from repro_torch.models import init_cache, init_params, load_jax_params
 from repro_torch.sched import evaluate_workflow, run_paper_experiment
 from repro_torch.traces import eager
 
@@ -51,6 +56,12 @@ ENTRY_POINTS = {
         eager(3), seed=0, train_frac=0.5, methods=["default"]),
     "run_paper_experiment": lambda: run_paper_experiment(
         eager(3), seeds=[0], train_fracs=(0.5,), methods=["default"]),
+    "models.init_params": lambda: init_params(
+        smoke_config("zamba2-2.7b"), torch.Generator()),
+    "models.load_jax_params": lambda: load_jax_params(
+        smoke_config("mamba2-780m"), {}),
+    "models.init_cache": lambda: init_cache(
+        smoke_config("zamba2-2.7b"), 1, 8),
 }
 
 
@@ -72,3 +83,15 @@ def test_cpu_tensor_counts_no_launch():
     ops.oom_probe(*args)
     ops.wastage_eval(*args)
     assert ops.LAUNCHES == before
+
+
+def test_cpu_tensors_count_no_lm_kernel_launch():
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, 16, 2, 8, generator=g) for _ in range(3))
+    X = torch.randn(1, 16, 2, 8, generator=g)
+    A = -torch.rand(1, 16, 2, generator=g)
+    Bm, Cm = (torch.randn(1, 16, 1, 4, generator=g) for _ in range(2))
+    before = (dict(flash_ops.LAUNCHES), dict(ssd_ops.LAUNCHES))
+    flash_ops.flash_attention(q, k, v)
+    ssd_ops.ssd(X, A, Bm, Cm, 8)
+    assert (flash_ops.LAUNCHES, ssd_ops.LAUNCHES) == before

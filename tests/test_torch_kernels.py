@@ -22,7 +22,8 @@ import torch
 from repro.core.wastage import oom_probe_ref, wastage_eval_ref
 from repro.kernels.wastage.ops import oom_probe as oom_probe_pallas
 from repro.kernels.wastage.ops import wastage_eval as wastage_eval_pallas
-from repro_torch.kernels.wastage import build, ops, ref
+from repro_torch.kernels import build
+from repro_torch.kernels.wastage import ops, ref
 
 TOL = dict(rtol=1e-4, atol=1e-2)
 
@@ -132,7 +133,7 @@ class TestBuildDir:
     def test_outside_a_checkout_raises(self, tmp_path):
         """A copy of build.py outside a ``<root>/src`` checkout (as after a
         plain install) refuses to pick a build directory."""
-        dst = tmp_path / "site" / "repro_torch" / "kernels" / "wastage"
+        dst = tmp_path / "site" / "repro_torch" / "kernels"
         dst.mkdir(parents=True)
         shutil.copy(build.__file__, dst / "build.py")
         spec = importlib.util.spec_from_file_location("_b", dst / "build.py")
