@@ -28,7 +28,9 @@ Phases (any failure exits non-zero; nothing is caught):
    events, median after warm-up, L2 flushed) at phase 5's attempt-1 probe
    shapes, beside their byte bound;
 7. build of the LM kernels ``ssd.cu`` and ``flash_attention.cu`` (started
-   in phase 2);
+   in phase 2): build seconds, and for every bf16 kernel its registers and
+   spills from ``ptxas -v`` and its count of ``HGMMA`` (tensor-core
+   ``wgmma``) instructions from ``cuobjdump -sass``;
 8. LM kernel parity on the tests' sweeps, each in float32 and bfloat16:
    ``flash_attention`` (MQA, Sq 64 with Skv 192, window 64, unaligned
    S = 100, hd = 80; 2e-5 in f32, 2e-2 in bf16) and ``ssd`` (chunks 32 /
@@ -41,7 +43,10 @@ Phases (any failure exits non-zero; nothing is caught):
    each, after one uncounted warm-up request.  Prefill seconds, decode
    tokens/s, peak memory; launches per prefill must be exactly one ``ssd``
    per Mamba2 block and one ``flash_attention`` per shared-block
-   application (54 and 9), and none in decode; all logits finite;
+   application (54 and 9), and none in decode; all logits finite.  Then
+   one more 4 x 2048 prefill under ``torch.profiler``: device ms by kernel
+   kind and the top kernels beside its wall time (the prefill split of
+   ``PERF.md`` section 5);
 10. card vs CPU at full width and reduced depth (6 Mamba2 blocks + the
    shared block), B = 1, S = 300 and 4 decode steps fed the same tokens:
    logits and every cache entry within 1e-3 in float32 (atol scaled down
@@ -61,6 +66,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -405,6 +412,60 @@ def phase_shape_cases(ssd_shapes, flash_shapes):
     return flash, ssd
 
 
+# ------------------------------------------------------------- phase 7
+def _short(mangled):
+    """``_ZN3fa314flash_fwd_bf16ILi80EEEv...`` -> ``flash_fwd_bf16<80>``."""
+    rest, name = mangled[3:], mangled
+    while rest[:1].isdigit():  # <length><identifier> pairs of the nesting
+        n = re.match(r"\d+", rest).group()
+        name, rest = rest[len(n):len(n) + int(n)], rest[len(n) + int(n):]
+    if rest.startswith("I"):
+        args = re.match(r"I((?:Li-?\d+E)+)E", rest)
+        if args:
+            name += "<" + ",".join(re.findall(r"Li(-?\d+)E",
+                                              args.group(1))) + ">"
+    return name
+
+
+def kernel_report(source, path):
+    """Per bf16 kernel of ``source``: registers, spill bytes and any
+    performance advisory (wgmma serialisation) from the build's ``ptxas``
+    output, ``HGMMA`` instructions from ``cuobjdump -sass`` (left out where
+    the toolkit has no ``cuobjdump``)."""
+    from repro_torch.kernels import build
+    report, fn = {}, None
+    for line in build.build_log(source).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if "Performance Loss" in line:  # ptxas advisories on wgmma
+            advised = re.search(r"'?(_Z\w+)", line)
+            key = advised.group(1) if advised else fn
+            report.setdefault(key, {}).setdefault("advisory", []).append(
+                line.split("Potential")[-1].strip()[:160])
+        elif m:
+            fn = m.group(1)
+            report.setdefault(fn, {})
+        elif fn and "spill stores" in line:
+            report[fn]["spills"] = [int(x) for x in re.findall(
+                r"(\d+) bytes spill", line)]
+        elif fn and "Used" in line and "registers" in line:
+            report[fn]["registers"] = int(re.search(
+                r"Used (\d+) registers", line).group(1))
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)],
+                          capture_output=True, text=True,
+                          check=True).stdout if os.path.exists(
+                              cuobjdump) else None
+    if sass is not None:
+        for block in sass.split("Function : ")[1:]:
+            name = block.split()[0]
+            if name in report:
+                report[name]["HGMMA"] = block.count("HGMMA")
+    return {_short(k): v for k, v in report.items()
+            if "bf16" in k or "ssd3" in k}
+
+
 # ------------------------------------------------------------- phase 9
 def serve(model, cfg, batches, new_tokens, seed):
     """``serve_demo``'s loop (``launch/serve.py``) on the card: per batch a
@@ -452,6 +513,44 @@ def serve(model, cfg, batches, new_tokens, seed):
                     "finite": bool(finite), "last_tokens": tok.tolist()})
         del cache, logits
     return out
+
+
+def profile_prefill(model, cfg, Bsz, S, seed=3):
+    """One prefill under ``torch.profiler``: device ms by kernel kind and
+    the top kernels, beside the prefill's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.runtime import make_prefill_step
+    prefill = make_prefill_step(cfg, capacity=S + NEW_TOKENS)
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (Bsz, S)), dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prefill(model, {"tokens": toks})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kinds = {"ssd": ("ssd_states", "ssd_pass", "ssd_scan"),
+             "flash_attention": ("flash_fwd",),
+             "matmul": ("gemm", "xmma", "cutlass", "nvjet", "cublas")}
+    by_kind, top = {}, []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # runtime calls on the host
+        ms = e.self_device_time_total / 1e3
+        kind = next((k for k, keys in kinds.items()
+                     if any(x in e.key for x in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+        top.append((ms, e.count, e.key[:90]))
+    top.sort(reverse=True)
+    busy = sum(by_kind.values())
+    return {"requests": Bsz, "prompt": S, "wall_ms": wall * 1e3,
+            "device_busy_ms": busy,
+            "idle_share": 1 - busy / (wall * 1e3) if wall else None,
+            "device_ms_by_kind": by_kind,
+            "port_kernels_ms_count": [t for t in top if "ssd3::" in t[2]
+                                      or "fa3::" in t[2]],
+            "top_kernels_ms_count": top[:15]}
 
 
 # ------------------------------------------------------------- phase 10
@@ -554,10 +653,13 @@ def lm_kernel_timings(launches, err):
     plain_ms = time_ms(lambda: sops.ref.ssd(X, A, Bm, Cm, chunk))
     # x, a, B, C read once; y (bf16) and the f32 final state written once;
     # per 64-row sub-chunk of each head: C.B and G.x over the lower
-    # triangle, C.state and the state update in full
+    # triangle, C.state and the state update in full.  The bf16 kernel's
+    # scratch (chunk states, entering states, cumsums) counts against its
+    # time, not the bound.
     nbytes = (2 * Bsz * S * Hs * P + Bsz * S * Hs + 2 * Bsz * S * G * N) \
         * 2 + Bsz * Hs * P * N * 4
-    T = sops.SUB_CHUNK
+    # the 64-row form, fixed: the bound may not move with the kernel's tiling
+    T = 64
     n_sub = -(-S // T)
     nops = Bsz * Hs * n_sub * (T * (T + 1) * (N + P) + 4 * T * P * N)
     out.append(_entry("ssd", launches, err, ms, plain_ms, None, nbytes,
@@ -677,6 +779,10 @@ def main() -> int:
         f"{os.path.relpath(built[n][0], ROOT)} in {built[n][1]:.2f} s"
         for n in ("ssd", "flash_attention")) +
         f" (all three sources in parallel: {build_wall:.2f} s wall)")
+    for name, src in (("ssd", sops.SOURCE), ("flash_attention", fops.SOURCE)):
+        log(f"phase 7: {name} bf16 kernels (registers, [spill store, spill "
+            f"load] bytes, HGMMA instructions): " + json.dumps(
+                kernel_report(src, built[name][0])))
 
     # 8. LM kernel parity on the tests' sweeps, f32 and bf16
     flash, ssd = lm_parity_cases()
@@ -724,6 +830,8 @@ def main() -> int:
     log(f"phase 9: main-path launches {lm_launches}; max memory allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     log("phase 9: records " + json.dumps(records))
+    log("phase 9: profile " + json.dumps(
+        profile_prefill(model, cfg, *SERVE_BATCHES[0])))
     del model
     torch.cuda.empty_cache()
 

@@ -11,22 +11,58 @@
 // Bound: operations.  A causal prefill of S tokens does about 2*S*S*hd
 // flops per head against 4*S*hd elements of q, k, v and out: S/4 flops per
 // bf16 byte, 512 at the model's S = 2048, above the card's ridge of ~295
-// (989 TFLOP/s bf16 over 3.35 TB/s).
+// (989 TFLOP/s bf16 over 3.35 TB/s).  So the products belong on the tensor
+// cores.  Two instances, chosen by dtype in the wrapper:
 //
-// Design (simple and right first; tensor cores, TMA and pipelining are
-// later work): one block of 256 threads per (b, h, 64-row query tile),
-// looping over 64-row KV tiles up to the causal frontier (tiles above it are
-// skipped, as the TPU kernel does).  Q (scaled in float32, as kernel.py:55),
-// the K and V tiles and the probability tile are staged in shared memory as
-// float32; both products run on the CUDA cores in float32 with a 4 x 4
-// register tile per thread for the scores and 4 rows x hd/16 columns for the
-// output.  The running max, normaliser and accumulator stay in registers
-// in float32 across KV tiles.  Masked scores take the finite -1e30 of the
-// TPU kernel: a row whose first visited tile is fully masked gets
-// exp(0) = 1 weights that the next tile's correction exp(-1e30 - m) = 0
-// wipes out, where -inf would give NaN.  The head dim is taken as it is
-// (hd <= 128); shared-memory rows have an odd float stride (hd + 1) so the
-// threads of a warp read distinct banks.
+// bf16 (the serving path; namespace fa3), shaped like FlashAttention-3's
+// forward: one block per (b, h, 128-row query tile), walked heaviest causal
+// tile first; two consumer warpgroups of 64 query rows and one producer
+// warp.  The producer loads the Q tile once and streams K and V tiles of BK
+// keys into a 2-stage shared-memory ring with TMA, each stage completing
+// on a "full" mbarrier and released on an "empty" one.  S = Q K^T is wgmma
+// m64n{BK}k16 (both operands K-major in shared memory, hd / 16 k-steps: 5
+// at zamba2's hd = 80).  BK is 128 up to hd 80 and 64 above: the largest
+// tile whose scores, P and output fit a thread's 168 registers without
+// spilling (a 288-thread wgmma kernel gets no more; 96-key tiles at hd 80
+// ran slower than 128 on the card).  The softmax runs in registers on the
+// accumulator layout, in the log2 domain; a row's max and sum are taken
+// over the quad of threads that holds it.  Only tiles that straddle the
+// causal diagonal, the window's edge or the end of the keys are masked;
+// tiles above the frontier (and wholly below the window) are never loaded.
+// P is rounded to bf16 in registers and is the register A operand of
+// O += P V (wgmma m64n{hd}k16, V the MN-major B operand from shared memory,
+// transpose bit set).  O and the running max and sum stay in float32
+// registers until the epilogue, which stores rows < Sq.  Inside each
+// warpgroup tile i's q.k and tile i-1's p.v are issued together, back to
+// back on the tensor cores, and tile i's softmax follows; the two
+// warpgroups take turns to issue (FlashAttention-3's "pingpong", on two
+// named barriers), so one's softmax runs under the other's products.  q is
+// taken as it is and the scale is applied to the float32 scores (the
+// Pallas kernel scales q in float32).
+//
+// hd = 80: a row is 160 bytes, more than the 128 bytes a 128-byte-swizzled
+// TMA box may span.  Each tile is loaded as 64-column boxes (the shared
+// layout of hopper.cuh), the second of which TMA fills past column 80 with
+// zeros: the q.k k-steps stop at hd, and the p.v accumulator is hd wide,
+// reading the second box through the descriptor's leading offset.  Chosen
+// over a 64 + 16 split (a 32-byte-swizzled second box) because V, as the
+// MN-major B operand of one m64n80 wgmma, needs one layout across all 80
+// columns; the cost is 48 zero columns of shared memory per tile row
+// (128 KB a block at hd = 80, one block per SM).  The model layout puts a
+// tile's rows H * hd apart, so each tensor is a 4-d map (hd, heads, S, B),
+// which also zero-fills ragged tails of S.
+//
+// float32 (parity checks only: held to 2e-5, which TF32 could not hold):
+// the CUDA-core body below, one block of 256 threads per (b, h, 64-row
+// query tile), looping over 64-row KV tiles up to the causal frontier.  Q
+// (scaled in float32, as kernel.py:55), the K and V tiles and the
+// probability tile are staged in shared memory as float32; both products
+// run on the CUDA cores in float32.  Shared-memory rows have an odd float
+// stride (hd + 1) so the threads of a warp read distinct banks.
+//
+// Both instances keep the TPU kernel's finite -1e30 mask: a row whose first
+// visited tile is fully masked gets exp(0) = 1 weights that the next tile's
+// correction exp(-1e30 - m) = 0 wipes out, where -inf would give NaN.
 //
 // Built without --use_fast_math: the float32 path is held to 2e-5.
 
@@ -34,6 +70,8 @@
 #include <cuda_runtime.h>
 
 #include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -45,13 +83,7 @@ constexpr int kHdCols = kMaxHd / 16;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 size_t smem_bytes(int hd) {
   return sizeof(float) * ((size_t)(kBq + kBk) * (hd + 1) +
@@ -218,10 +250,361 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
+// ------------------------------------------------------------------ bf16
+namespace fa3 {
+
+using namespace hopper;
+
+constexpr int kBq = 128;                    // query rows per block
+constexpr int kStages = 2;                  // K / V ring
+constexpr int kConsumers = 256;             // two warpgroups of 64 rows
+constexpr int kThreads = kConsumers + 32;   // and one producer warp
+constexpr int kQRegion = kBq * kRowBytes;   // 64 columns x 128 rows: 16 KB
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Keys per K / V tile for a head dim rounded to HD: the largest tile whose
+// scores (BK / 2 floats a thread), bf16 P (BK / 4 words) and output
+// (HD / 2 floats) fit the 168 registers a thread of this 288-thread wgmma
+// kernel gets without spilling: 128 up to hd 80, then 64.
+__host__ __device__ constexpr int keys_per_tile(int HD) {
+  return HD <= 80 ? 128 : 64;
+}
+
+size_t smem_bytes(int regions, int BK) {
+  // 1024 bytes of alignment slack, Q, the K and V rings, the barriers
+  return 1024 +
+         (size_t)regions * (kQRegion + 2 * kStages * BK * kRowBytes) + 64;
+}
+
+// S = Q K^T into sc: both operands K-major, one k-step per 16 columns of
+// hd.  Issued and committed, not waited for.
+template <int HD, int BK>
+__device__ __forceinline__ void issue_qk(float (&sc)[BK / 2], uint32_t qa,
+                                         uint32_t ka) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss<BK, 0, 0>(
+        sc, desc_sw128(qa + (kk / 4) * kQRegion + col, 16, 1024),
+        desc_sw128(ka + (kk / 4) * BK * kRowBytes + col, 16, 1024), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V: P from registers, V the MN-major B operand.  Issued and
+// committed, not waited for.
+template <int HD, int BK>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+                                         const uint32_t (&pa)[BK / 16][4],
+                                         uint32_t va) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    wgmma_rs<HD, 1>(
+        o, pa[kk],
+        desc_sw128(va + kk * 16 * kRowBytes, BK * kRowBytes, 1024), 1);
+  wgmma_commit();
+}
+
+// The running max (log2 domain) and partial sum of a thread's two rows,
+// and the correction the output has yet to take for the last tile.
+struct Rows {
+  float m0, m1, l0, l1, c0, c1;
+};
+
+// The keys a thread's two rows may see, [lo, hi), and the range every row
+// of its warpgroup sees: a tile inside [all_lo, all_hi) needs no mask.
+struct Keys {
+  int lo0, hi0, lo1, hi1, all_lo, all_hi;
+};
+
+__device__ __forceinline__ int keys_lo(int q, int window) {
+  return window > 0 ? max(0, q - window + 1) : 0;
+}
+
+__device__ __forceinline__ int keys_hi(int q, int Skv, int causal) {
+  return causal ? min(Skv, q + 1) : Skv;
+}
+
+// Online softmax of the tile of keys k0 .. k0 + BK - 1 in sc: p replaces
+// the scores and r is updated.  Only a tile that straddles the causal
+// diagonal, the window's edge or the end of the keys is masked; a row
+// lives on the quad of threads lane / 4.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2], Rows& r,
+                                             int k0, const Keys& ks, int t4,
+                                             float scale_log2) {
+  if (k0 < ks.all_lo || k0 + BK > ks.all_hi) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + 8 * j + 2 * t4 + (e & 1);
+        const bool ok = e < 2 ? kp >= ks.lo0 && kp < ks.hi0
+                              : kp >= ks.lo1 && kp < ks.hi1;
+        if (!ok) sc[4 * j + e] = kNegInf;
+      }
+    }
+  }
+  float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+#pragma unroll
+  for (int d = 1; d <= 2; d <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, d));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, d));
+  }
+  // the max of the raw scores, scaled (scale > 0 commutes with max)
+  const float mn0 = fmaxf(r.m0, mx0 * scale_log2);
+  const float mn1 = fmaxf(r.m1, mx1 * scale_log2);
+  r.c0 = exp2_ftz(r.m0 - mn0);
+  r.c1 = exp2_ftz(r.m1 - mn1);
+  r.m0 = mn0;
+  r.m1 = mn1;
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    sc[4 * j] = exp2_ftz(fmaf(sc[4 * j], scale_log2, -mn0));
+    sc[4 * j + 1] = exp2_ftz(fmaf(sc[4 * j + 1], scale_log2, -mn0));
+    sc[4 * j + 2] = exp2_ftz(fmaf(sc[4 * j + 2], scale_log2, -mn1));
+    sc[4 * j + 3] = exp2_ftz(fmaf(sc[4 * j + 3], scale_log2, -mn1));
+    s0 += sc[4 * j] + sc[4 * j + 1];
+    s1 += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  r.l0 = r.l0 * r.c0 + s0;  // per-thread partial sums, reduced at the end
+  r.l1 = r.l1 * r.c1 + s1;
+}
+
+// HD: the head dim rounded up to 16 (the width of the output accumulator
+// and the number of k-steps of q.k times 16); BK: keys per K / V tile.
+template <int HD, int BK>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
+                   int K, int hd, int causal, int window, float scale_log2) {
+  constexpr int kReg = (HD + kRegionCols - 1) / kRegionCols;
+  constexpr int kQTile = kReg * kQRegion;
+  constexpr int kKvRegion = BK * kRowBytes;
+  constexpr int kTile = kReg * kKvRegion;  // one K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + (((smem_u32(smem_raw) + 1023) & ~1023u) - smem_u32(smem_raw));
+  uint8_t* q_s = smem;                    // kReg regions
+  uint8_t* k_s = q_s + kQTile;             // kStages tiles
+  uint8_t* v_s = k_s + kStages * kTile;   // kStages tiles
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(v_s + kStages * kTile);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + kStages;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBq;  // heavy tiles first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / K);
+  const int tid = threadIdx.x;
+
+  // K / V tiles [t_begin, t_end): up to the causal frontier, from the
+  // window's lower edge for the block's first row; at least one.
+  const int kv_end = causal ? min(Skv, q0 + kBq) : Skv;
+  const int t_end = (kv_end + BK - 1) / BK;
+  int t_begin = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+  t_begin = min(t_begin, t_end - 1);
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // producer warp: one thread issues every load
+    if (tid == kConsumers) {
+      mbar_expect_tx(bar_q, kQTile);
+      for (int r = 0; r < kReg; ++r)
+        tma_load_4d(q_s + r * kQRegion, &tq, bar_q, r * kRegionCols, h, q0,
+                    b);
+      for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+        const int s = i % kStages;
+        mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * kTile);
+        for (int r = 0; r < kReg; ++r) {
+          tma_load_4d(k_s + s * kTile + r * kKvRegion, &tk, &full[s],
+                      r * kRegionCols, kvh, t * BK, b);
+          tma_load_4d(v_s + s * kTile + r * kKvRegion, &tv, &full[s],
+                      r * kRegionCols, kvh, t * BK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63; this
+  // thread holds rows row0 and row0 + 8 of the accumulators
+  const int wg = tid / 128;
+  const int w = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int t4 = lane % 4;
+  const int qmin = q0 + wg * 64;
+  const int row0 = qmin + w * 16 + lane / 4;
+  const uint32_t qa = smem_u32(q_s) + wg * 64 * kRowBytes;
+  const Keys ks{keys_lo(row0, window),     keys_hi(row0, Skv, causal),
+                keys_lo(row0 + 8, window), keys_hi(row0 + 8, Skv, causal),
+                keys_lo(qmin + 63, window), keys_hi(qmin, Skv, causal)};
+
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  Rows r{kNegInf, kNegInf, 0.f, 0.f, 0.f, 0.f};
+  float sc[BK / 2];         // the scores of the newest tile
+  uint32_t pa[BK / 16][4];  // P of the tile before it, bf16
+
+  // Tile i's q.k and tile i-1's p.v are issued together and run back to
+  // back on the tensor cores; tile i's softmax follows.  Letting the
+  // softmax overlap this warpgroup's own p.v as well kept P and the scores
+  // live at once, spilled at hd = 80 and ran slower on the card.
+  //
+  // The two warpgroups take turns to issue their products (named barriers
+  // 1 and 2, 256 threads each: one warpgroup waits, the other arrives), so
+  // that one's softmax runs while the other's products occupy the tensor
+  // cores.  Warpgroup 1 lets warpgroup 0 go first and skips its last
+  // hand-over, which keeps both barriers' counts balanced.
+  const int turns = t_end - t_begin + 1;  // q.k of the first tile, ...,
+  int turn = 0;                           // ..., p.v of the last
+  auto wait_turn = [&] { named_sync(1 + wg, kConsumers); };
+  auto pass_turn = [&] {
+    if (wg == 0 || ++turn < turns) named_arrive(2 - wg, kConsumers);
+  };
+  if (wg == 1) named_arrive(1, kConsumers);
+
+  mbar_wait(bar_q, 0);
+  mbar_wait(&full[0], 0);
+  wait_turn();
+  wgmma_fence();
+  issue_qk<HD, BK>(sc, qa, smem_u32(k_s));
+  pass_turn();
+  wgmma_wait<0>();
+  fence_regs(sc);
+  softmax_tile<BK>(sc, r, t_begin * BK, ks, t4, scale_log2);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) a_frag(sc, kk, pa[kk]);
+  for (int t = t_begin + 1, i = 1; t < t_end; ++t, ++i) {
+    const int s = i % kStages, sp = (i - 1) % kStages;
+    mbar_wait(&full[s], (i / kStages) & 1);
+    fence_regs(o);
+    wait_turn();
+    wgmma_fence();
+    issue_qk<HD, BK>(sc, qa, smem_u32(k_s + s * kTile));  // S_i
+    issue_pv<HD, BK>(o, pa, smem_u32(v_s + sp * kTile));  // P_{i-1} V_{i-1}
+    pass_turn();
+    wgmma_wait<0>();  // both are in: stage i-1 is free
+    fence_regs(sc);
+    fence_regs(o);
+    mbar_arrive(&empty[sp]);
+    softmax_tile<BK>(sc, r, t * BK, ks, t4, scale_log2);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[4 * j] *= r.c0;
+      o[4 * j + 1] *= r.c0;
+      o[4 * j + 2] *= r.c1;
+      o[4 * j + 3] *= r.c1;
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) a_frag(sc, kk, pa[kk]);
+  }
+  const int last = (t_end - 1 - t_begin) % kStages;
+  fence_regs(o);
+  wait_turn();
+  wgmma_fence();
+  issue_pv<HD, BK>(o, pa, smem_u32(v_s + last * kTile));
+  pass_turn();
+  wgmma_wait<0>();
+  fence_regs(o);
+  mbar_arrive(&empty[last]);
+  float l0 = r.l0, l1 = r.l1;
+
+#pragma unroll
+  for (int d = 1; d <= 2; d <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, d);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, d);
+  }
+  const float inv[2] = {1.f / fmaxf(l0, 1e-30f), 1.f / fmaxf(l1, 1e-30f)};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = row0 + 8 * r;
+    if (qp >= Sq) continue;
+    __nv_bfloat16* row = out + (((size_t)b * Sq + qp) * H + h) * hd;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col < hd)
+        *reinterpret_cast<uint32_t*>(row + col) =
+            pack_bf16(o[4 * j + 2 * r] * inv[r], o[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+}
+
+template <int HD>
+int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
+              int Sq, int Skv, int H, int K, int hd, int causal, int window,
+              float scale, cudaStream_t stream) {
+  // 4-d maps (hd, heads, S, B): a tile's rows are heads * hd apart in the
+  // model layout, and TMA zero-fills the tails of hd and S
+  constexpr int BK = keys_per_tile(HD);
+  const cuuint32_t qbox[4] = {kRegionCols, 1, kBq, 1};
+  const cuuint32_t kbox[4] = {kRegionCols, 1, BK, 1};
+  const cuuint64_t e = 2;  // bytes of a bf16
+  const cuuint64_t qdims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)Sq,
+                               (cuuint64_t)B};
+  const cuuint64_t qstr[3] = {hd * e, H * hd * e, (cuuint64_t)Sq * H * hd * e};
+  const cuuint64_t kdims[4] = {(cuuint64_t)hd, (cuuint64_t)K,
+                               (cuuint64_t)Skv, (cuuint64_t)B};
+  const cuuint64_t kstr[3] = {hd * e, K * hd * e,
+                              (cuuint64_t)Skv * K * hd * e};
+  CUtensorMap tq, tk, tv;
+  int err = encode_bf16_map(&tq, q, 4, qdims, qstr, qbox);
+  if (!err) err = encode_bf16_map(&tk, k, 4, kdims, kstr, kbox);
+  if (!err) err = encode_bf16_map(&tv, v, 4, kdims, kstr, kbox);
+  if (err) return err;
+  const size_t smem =
+      smem_bytes((HD + kRegionCols - 1) / kRegionCols, BK);
+  err = set_smem(flash_fwd_bf16<HD, BK>, smem);
+  if (err) return err;
+  dim3 grid((Sq + kBq - 1) / kBq, H, B);
+  flash_fwd_bf16<HD, BK><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Skv, H, K, hd, causal,
+      window, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           int Sq, int Skv, int H, int K, int hd, int causal, int window,
+           float scale, cudaStream_t stream) {
+#define KSP_HD(n)                                                          \
+  case n:                                                                  \
+    return launch_hd<n>(q, k, v, out, B, Sq, Skv, H, K, hd, causal, window, \
+                        scale, stream);
+  switch (round_up(hd, 16)) {
+    KSP_HD(16) KSP_HD(32) KSP_HD(48) KSP_HD(64)
+    KSP_HD(80) KSP_HD(96) KSP_HD(112) KSP_HD(128)
+  }
+#undef KSP_HD
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace fa3
+
 extern "C" {
 
 // Returns cudaGetLastError() after the launch: nonzero means the launch was
-// refused.  The wrapper (ops.py) checks shapes, dtypes and hd <= 128.
+// refused (or a tensor map could not be encoded).  The wrapper (ops.py)
+// checks shapes, dtypes, hd <= 128, and for bf16 hd % 8 == 0 and 16-byte
+// aligned pointers (TMA's rules).
 int ksp_flash_attention_f32(const void* q, const void* k, const void* v,
                             void* out, int B, int Sq, int Skv, int H, int K,
                             int hd, int causal, int window, float scale,
@@ -234,8 +617,8 @@ int ksp_flash_attention_bf16(const void* q, const void* k, const void* v,
                              void* out, int B, int Sq, int Skv, int H, int K,
                              int hd, int causal, int window, float scale,
                              cudaStream_t stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Skv, H, K, hd, causal,
-                               window, scale, stream);
+  return fa3::launch(q, k, v, out, B, Sq, Skv, H, K, hd, causal, window,
+                     scale, stream);
 }
 
 }  // extern "C"

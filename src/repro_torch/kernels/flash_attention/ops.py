@@ -8,10 +8,19 @@ layout.  A tensor on the CPU goes to the plain version
 the hand-written kernel (``csrc/flash_attention.cu``) or raises.
 ``LAUNCHES["flash_attention"]`` counts kernel launches and nothing else.
 
-Like the Pallas kernel, the CUDA kernel scales q in float32 and computes
-the softmax and both products in float32; it takes the head dim as it is
-(hd <= 128, zamba2's 80 included), where the TPU wrapper pads it to 128,
-and masks ragged sequence tails itself, so nothing is padded or copied.
+The CUDA source has two instances, picked here by dtype:
+
+* bfloat16 (serving): tensor-core products (``wgmma``) on bf16 operands
+  with float32 accumulation, tiles brought in by TMA.  q·k is computed from
+  q as given and scaled in float32; p is rounded to bf16 for p·v, as the
+  reference's serving path does (``models/attention.py:82``).  TMA needs
+  ``hd % 8 == 0`` and 16-byte aligned tensors.
+* float32 (parity checks): the CUDA-core body; q scaled, softmax and both
+  products in float32, as the Pallas kernel.
+
+Both take the head dim as it is (hd <= 128, zamba2's 80 included), where
+the TPU wrapper pads it to 128, and mask ragged sequence tails themselves,
+so nothing is padded or copied.  One launch per call.
 """
 
 from __future__ import annotations
@@ -70,6 +79,8 @@ def _check(q, k, v, window):
         raise ValueError(f"window must be positive, got {window}")
     if q.device.type == "cuda" and hd > MAX_HD:
         raise ValueError(f"the kernel takes hd <= {MAX_HD}, got {hd}")
+    if q.device.type == "cuda" and q.dtype == torch.bfloat16:
+        build.check_tma(hd, q=q, k=k, v=v)
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
     return B, Sq, Skv, H, K, hd

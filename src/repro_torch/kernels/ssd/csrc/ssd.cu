@@ -8,29 +8,57 @@
 //   L     = exp(cum_i - cum_j) for i >= j, else 0
 //   y     = ((C B^T) o L) x + (C o exp(cum)) state^T
 //   state = state * exp(cum_last) + x^T (B o exp(cum_last - cum))
-// Outputs y in x's dtype and the final state in float32 (B,H,P,N).
+// Outputs y in x's dtype and the final state in float32 (B,H,P,N).  The
+// result does not depend on the chunk size, so each instance picks its own.
 //
 // Bound: memory at the model's shapes.  Per row and head the scan reads x
 // and writes y (P elements each; B, C and a are shared or small) and does
-// at most 2*(kSub*(N + P) + 2*P*N) flops: ~128 flops per bf16 byte at
-// P = N = 64, under the card's ridge of ~295 (989 TFLOP/s over 3.35 TB/s).
+// at most 2*(64*(N + P) + 2*P*N) flops in the 64-row form: ~128 flops per
+// bf16 byte at P = N = 64, under the card's ridge of ~295 (989 TFLOP/s over
+// 3.35 TB/s).  Two instances, chosen by dtype in the wrapper:
 //
-// Design (simple and right first; tensor cores, TMA and pipelining are
-// later work): one block of 256 threads per (b, h), sequential over
-// sub-chunks of kSub = 64 rows whatever the model's chunk (the scan's result
-// does not depend on the chunk size; 64 rows keep the working set on chip:
-// at the model's chunk of 256 the 256 x 256 float32 score tile alone is
-// 256 KB, more than a block's 227 KB).  The state (P x N float32) lives in
-// shared memory for the whole sequence.  Per sub-chunk the x, B and C rows
-// are staged in shared memory as float32 (ragged tails read as zeros, which
-// is the zero padding of the TPU wrapper), warp 0 takes the cumulative sum
-// of a with shuffles, and the three products run on the CUDA cores in
-// float32 with register tiles.  exp(cum_i - cum_j) is evaluated on the
-// lower triangle only: above it the exponent is positive and can overflow,
-// and inf * 0 would be NaN.  Shared-memory rows of B, C and the state have an
-// odd float stride (N + 1) so the threads of a warp read distinct banks.
-// Parallelism is B*H blocks: 320 at the serving batch of 4 on zamba2
-// (80 heads), ~2.4 waves of 132 SMs; only 80 at batch 1.
+// bf16 (the serving path; namespace ssd3): the chunked dual form in three
+// kernels per call, with chunks of kT = 256 rows (the model's chunk, which
+// keeps the state scratch smallest):
+//   1. ssd_states, grid (chunks, H, B): the chunk's cumsum of a (float32)
+//      and its own state s_c = x^T (B o exp(cum_last - cum)) as wgmmas over
+//      the chunk's rows, which stream through a 2-stage TMA ring in 64-row
+//      sub-tiles; s_c and cum go to float32 scratch;
+//   2. ssd_pass, per (b, h) and state element: the states entering each
+//      chunk, s_in[c] = s_in[c-1] exp(cum_last[c-1]) + s_{c-1}, sequential
+//      over the chunks (8 at S = 2048), into bf16 scratch as a hi and lo
+//      pair, and the final state in float32;
+//   3. ssd_scan, grid (64-row tiles, H, B): y for 64 rows from wgmmas
+//      C s_in^T and, over the chunk's 64-key sub-tiles up to the diagonal
+//      (streamed through a 2-stage TMA ring), C B_j^T and ((C B_j^T) o L) x_j
+//      with the masked scores as bf16 register operands (hi and lo).
+// Every tile is loaded by a producer warp with TMA (64-column boxes,
+// 128-byte swizzle, ragged tails of S, P and N zero-filled: nothing is
+// padded or copied) and consumed by one warpgroup.  x, B and C are bf16
+// inputs, so every product is exact but for the operands the kernel
+// computes: B o exp(cum_last - cum), s_in and (C B^T) o L.  Each of those
+// is split into a bf16 hi and lo pair (two wgmmas, ~16 bits kept): one
+// bf16 rounding (2^-9 relative) carried errors of 0.035 into y where its
+// terms cancel, past the 2e-2 that y is held to, and into every state,
+// held to 5e-3.  The products are a small part of a byte-bound kernel, so
+// the second wgmma is cheap.  Parallelism: 2,560 blocks in pass 1 and
+// 10,240 in pass 3 at the serving batch of 4 x 2048 on zamba2 (80 heads),
+// where the old design had 320.
+//
+// float32 (parity checks only: held to 5e-3, which TF32 could not hold):
+// the CUDA-core body below, one block of 256 threads per (b, h),
+// sequential over sub-chunks of kSub = 64 rows (at the model's chunk of 256
+// the 256 x 256 float32 score tile alone is 256 KB, more than a block's
+// 227 KB).  The state (P x N float32) lives in shared memory for the whole
+// sequence; per sub-chunk the x, B and C rows are staged in shared memory
+// as float32 (ragged tails read as zeros), warp 0 takes the cumulative sum
+// of a with shuffles, and the three products run on the CUDA cores.
+// Shared-memory rows of B, C and the state have an odd float stride
+// (N + 1) so the threads of a warp read distinct banks.
+//
+// Both instances evaluate exp(cum_i - cum_j) on the lower triangle only:
+// above it the exponent is positive and can overflow, and inf * 0 would be
+// NaN.
 //
 // Built without --use_fast_math: the float32 path is held to 5e-3.
 
@@ -38,6 +66,8 @@
 #include <cuda_runtime.h>
 
 #include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -47,13 +77,7 @@ constexpr int kMaxP = 128;
 constexpr int kMaxN = 128;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 size_t smem_bytes(int P, int N) {
   const size_t ldn = N + 1;
@@ -272,6 +296,507 @@ int launch(const void* x, const void* a, const void* b, const void* c,
 
 }  // namespace
 
+// ------------------------------------------------------------------ bf16
+namespace ssd3 {
+
+using namespace hopper;
+
+constexpr int kT = 256;                    // chunk rows (the model's chunk)
+constexpr int kR = 64;                     // rows of a sub-tile
+constexpr int kSubs = kT / kR;
+constexpr int kStages = 2;                 // the ring of passes 1 and 3
+constexpr int kConsumers = 128;            // one warpgroup
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kRegion = kR * kRowBytes;    // 64 columns x 64 rows: 8 KB
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* raw) {
+  return raw + (((smem_u32(raw) + 1023) & ~1023u) - smem_u32(raw));
+}
+
+// Inclusive cumsum in float32 of a over the chunk's kT rows from index
+// `base` (rows `H` apart), by the 128 consumer threads, two rows each;
+// rows at or past `rows` read 0.
+__device__ __forceinline__ void chunk_cumsum(const __nv_bfloat16* a,
+                                             size_t base, int rows, int H,
+                                             float* cum, float* warp_tot,
+                                             int tid) {
+  const int r0 = 2 * tid, lane = tid % 32;
+  const float a0 = r0 < rows ? __bfloat162float(a[base + (size_t)r0 * H])
+                             : 0.f;
+  const float a1 = r0 + 1 < rows
+                       ? __bfloat162float(a[base + (size_t)(r0 + 1) * H])
+                       : 0.f;
+  const float pair = a0 + a1;
+  float incl = pair;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float up = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += up;
+  }
+  if (lane == 31) warp_tot[tid / 32] = incl;
+  named_sync(1, kConsumers);
+  float off = 0.f;
+  for (int w = 0; w < tid / 32; ++w) off += warp_tot[w];
+  const float excl = off + incl - pair;
+  cum[r0] = excl + a0;
+  cum[r0 + 1] = (excl + a0) + a1;
+  named_sync(1, kConsumers);
+}
+
+// Pass 1, one block per (chunk, h, b): the chunk's own state
+//   s_c = x^T (B o exp(cum_last - cum))     (P x N, float32)
+// and its cumsum of a.  x and B stream through the ring in 64-row
+// sub-tiles; B o decay is rewritten in shared memory as a bf16 hi part (in
+// place) plus a bf16 lo part, so the product keeps ~16 bits of the decayed
+// B (two wgmmas, x^T and B MN-major).  NP: N rounded up to 16; MT: 64-row
+// tiles of P.
+template <int NP, int MT>
+__global__ void __launch_bounds__(kThreads)
+    ssd_states(const __grid_constant__ CUtensorMap tx,
+               const __grid_constant__ CUtensorMap tb,
+               const __nv_bfloat16* __restrict__ a,
+               float* __restrict__ states, float* __restrict__ cum_out,
+               int S, int H, int P, int G, int N, int nc) {
+  constexpr int NR = (NP + kRegionCols - 1) / kRegionCols;
+  constexpr int kX = MT * kRegion;
+  constexpr int kStage = kX + NR * kRegion;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = align1024(smem_raw);            // kStages x (x, B)
+  uint8_t* lo = ring + kStages * kStage;          // NR regions
+  float* cum = reinterpret_cast<float*>(lo + NR * kRegion);  // kT
+  float* dec = cum + kT;                                     // kT
+  float* warp_tot = dec + kT;                                // 8
+  uint64_t* full = reinterpret_cast<uint64_t*>(warp_tot + 8);
+  uint64_t* empty = full + kStages;
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / G);
+  const int tid = threadIdx.x;
+  const int row0 = c * kT;
+  const int rows = min(kT, S - row0);
+  const int n_sub = (rows + kR - 1) / kR;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    if (tid == kConsumers) {
+      for (int u = 0; u < n_sub; ++u) {
+        const int s = u % kStages;
+        mbar_wait(&empty[s], ((u / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], kStage);
+        uint8_t* st = ring + s * kStage;
+        for (int r = 0; r < MT; ++r)
+          tma_load_4d(st + r * kRegion, &tx, &full[s], r * kRegionCols, h,
+                      row0 + u * kR, b);
+        for (int r = 0; r < NR; ++r)
+          tma_load_4d(st + kX + r * kRegion, &tb, &full[s], r * kRegionCols,
+                      g, row0 + u * kR, b);
+      }
+    }
+    return;
+  }
+
+  chunk_cumsum(a, ((size_t)b * S + row0) * H + h, rows, H, cum, warp_tot,
+               tid);
+  const float clast = cum[kT - 1];
+  float* cum_dst = cum_out + (((size_t)b * H + h) * nc + c) * kT;
+  for (int r = tid; r < kT; r += kConsumers) {
+    dec[r] = expf(clast - cum[r]);
+    cum_dst[r] = cum[r];
+  }
+
+  float acc[MT][NP / 2];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i) acc[m][i] = 0.f;
+
+  for (int u = 0; u < n_sub; ++u) {
+    const int s = u % kStages;
+    uint8_t* st = ring + s * kStage;
+    uint8_t* bt = st + kX;
+    // dec is written; the last sub-tile's wgmmas are done with `lo`
+    named_sync(1, kConsumers);
+    mbar_wait(&full[s], (u / kStages) & 1);
+    // B o decay -> hi (in place) + lo; a 16-byte chunk is 8 columns of one
+    // row (the swizzle permutes chunks within a row, never across rows)
+    for (int ch = tid; ch < NR * kR * 8; ch += kConsumers) {
+      const float d = dec[u * kR + (ch / 8) % kR];
+      uint4 hv = reinterpret_cast<const uint4*>(bt)[ch];
+      uint4 lv;
+      __nv_bfloat162* ph = reinterpret_cast<__nv_bfloat162*>(&hv);
+      __nv_bfloat162* pl = reinterpret_cast<__nv_bfloat162*>(&lv);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 f = __bfloat1622float2(ph[q]);
+        const float fx = f.x * d, fy = f.y * d;
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(fx, fy);
+        const float2 fh = __bfloat1622float2(hi);
+        pl[q] = __floats2bfloat162_rn(fx - fh.x, fy - fh.y);
+        ph[q] = hi;
+      }
+      reinterpret_cast<uint4*>(bt)[ch] = hv;
+      reinterpret_cast<uint4*>(lo)[ch] = lv;
+    }
+    fence_proxy_async();
+    named_sync(1, kConsumers);
+
+    wgmma_fence();
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+#pragma unroll
+      for (int kk = 0; kk < kR / 16; ++kk) {
+        const uint32_t row = kk * 16 * kRowBytes;
+        const uint64_t da =
+            desc_sw128(smem_u32(st) + m * kRegion + row, kRegion, 1024);
+        wgmma_ss<NP, 1, 1>(acc[m], da,
+                           desc_sw128(smem_u32(bt) + row, kRegion, 1024), 1);
+        wgmma_ss<NP, 1, 1>(acc[m], da,
+                           desc_sw128(smem_u32(lo) + row, kRegion, 1024), 1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int m = 0; m < MT; ++m) fence_regs(acc[m]);
+    mbar_arrive(&empty[s]);
+  }
+
+  // states (B, nc, H, P, N): row p = 64 m + 16 w + lane / 4 (+ 8), column n
+  const int w = tid / 32, lane = tid % 32;
+  float* dst = states + (((size_t)b * nc + c) * H + h) * P * N;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < NP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int p = m * 64 + w * 16 + lane / 4 + 8 * (e >> 1);
+        const int n = 8 * j + 2 * (lane % 4) + (e & 1);
+        if (p < P && n < N) dst[(size_t)p * N + n] = acc[m][4 * j + e];
+      }
+}
+
+// Pass 2, per (b, h) and state element: the state entering each chunk,
+//   s_in[0] = 0,  s_in[c] = s_in[c-1] exp(cum_last[c-1]) + s_{c-1},
+// for pass 3 as a bf16 hi and lo pair (B, nc, H, 2, P, N), and the final
+// state in float32.
+__global__ void __launch_bounds__(256)
+    ssd_pass(const float* __restrict__ states, const float* __restrict__ cum,
+             __nv_bfloat16* __restrict__ s_in, float* __restrict__ final_state,
+             int H, int PN, int nc) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  if (e >= PN) return;
+  float run = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    const size_t off = (((size_t)b * nc + c) * H + h) * PN + e;
+    const float own = states[off];
+    const __nv_bfloat16 hi = __float2bfloat16_rn(run);
+    __nv_bfloat16* dst = s_in + (((size_t)b * nc + c) * H + h) * 2 * PN + e;
+    dst[0] = hi;
+    dst[PN] = __float2bfloat16_rn(run - __bfloat162float(hi));
+    run = run * expf(cum[(((size_t)b * H + h) * nc + c) * kT + kT - 1]) + own;
+  }
+  final_state[((size_t)b * H + h) * PN + e] = run;
+}
+
+// Pass 3, one block per (64-row tile of the sequence, h, b):
+//   y = diag(exp(cum)) (C s_in^T) + sum_{j <= i} ((C B_j^T) o L) x_j
+// over the key sub-tiles j of the row tile's chunk up to its own (as causal
+// flash walks keys), so the chunk's 256 x 256 score tile never has to fit.
+// C B_j^T and C s_in^T are wgmmas with K-major operands; (C B_j^T) o L is
+// split in registers into a bf16 hi and lo pair, the A operands of two
+// products with x_j (MN-major), and s_in comes as a hi and lo pair too:
+// one bf16 rounding of either would put errors of 2^-9 of the largest
+// terms into y, past the 2e-2 that y is held to where terms cancel.
+// exp(cum_i - cum_j) is evaluated on the lower triangle only.  (A block of
+// two row tiles sharing one key stream ran slower on the card: each
+// warpgroup waits on the other's ring slots.)  PP: P rounded up to 16.
+template <int PP>
+__global__ void __launch_bounds__(kThreads)
+    ssd_scan(const __grid_constant__ CUtensorMap tc,
+             const __grid_constant__ CUtensorMap tb,
+             const __grid_constant__ CUtensorMap tx,
+             const __grid_constant__ CUtensorMap ts,
+             const float* __restrict__ cum, __nv_bfloat16* __restrict__ y,
+             int S, int H, int P, int G, int N, int nc) {
+  constexpr int PR = (PP + kRegionCols - 1) / kRegionCols;
+  constexpr int ld = PP / 2 + 4;  // 32-bit words of a staged row of y
+  const int nr = (N + kRegionCols - 1) / kRegionCols;
+  const int nk = round_up(N, 16) / 16;  // k-steps over the state dim
+  const int s_region = PP * kRowBytes;  // a region of the s_in tile
+  const int stage = (nr + PR) * kRegion;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* c_s = align1024(smem_raw);       // nr regions
+  uint8_t* s_s = c_s + nr * kRegion;        // 2 x nr regions of PP rows
+  uint8_t* ring = s_s + 2 * nr * s_region;  // kStages x (B_j, x_j)
+  float* cum_s = reinterpret_cast<float*>(ring + kStages * stage);  // kT
+  uint64_t* bar_c = reinterpret_cast<uint64_t*>(cum_s + kT);
+  uint64_t* full = bar_c + 1;
+  uint64_t* empty = full + kStages;
+  static_assert(kR * ld * 4 <= kStages * (1 + PR) * kRegion, "ring size");
+
+  const int it = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / G);
+  const int c = it / kSubs;      // the row tile's chunk
+  const int j0 = c * kSubs;      // the chunk's first row tile
+  const int n_kt = it - j0 + 1;  // key tiles j0 .. it
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(bar_c, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    if (tid == kConsumers) {
+      mbar_expect_tx(bar_c, nr * (kRegion + 2 * s_region));
+      for (int r = 0; r < nr; ++r) {
+        tma_load_4d(c_s + r * kRegion, &tc, bar_c, r * kRegionCols, g,
+                    it * kR, b);
+        for (int q = 0; q < 2; ++q)  // hi, lo
+          tma_load_3d(s_s + (q * nr + r) * s_region, &ts, bar_c,
+                      r * kRegionCols, 0, ((b * nc + c) * H + h) * 2 + q);
+      }
+      for (int u = 0; u < n_kt; ++u) {
+        const int s = u % kStages;
+        mbar_wait(&empty[s], ((u / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], stage);
+        uint8_t* st = ring + s * stage;
+        for (int r = 0; r < nr; ++r)
+          tma_load_4d(st + r * kRegion, &tb, &full[s], r * kRegionCols, g,
+                      (j0 + u) * kR, b);
+        for (int r = 0; r < PR; ++r)
+          tma_load_4d(st + (nr + r) * kRegion, &tx, &full[s],
+                      r * kRegionCols, h, (j0 + u) * kR, b);
+      }
+    }
+    return;
+  }
+
+  const float* cum_src = cum + (((size_t)b * H + h) * nc + c) * kT;
+  // the cumsum in the log2 domain: every exponential below is one ex2 on
+  // the special-function unit (y is held to 2e-2; ex2.approx is good to
+  // ~2^-22 relative)
+  for (int r = tid; r < kT; r += kConsumers)
+    cum_s[r] = cum_src[r] * 1.4426950408889634f;
+  named_sync(1, kConsumers);
+
+  const int w = tid / 32, lane = tid % 32, t4 = lane % 4;
+  const int rr0 = (it - j0) * kR + w * 16 + lane / 4;  // chunk-relative rows
+  const uint32_t ca = smem_u32(c_s), sa = smem_u32(s_s);
+
+  // y = sum_j ((C B_j^T) o L) x_j, then + exp(cum) o (C s_in^T).  No
+  // accumulator is zeroed or scaled by hand between its products: the first
+  // wgmma of each product does not add (scale_d = 0), and the state term is
+  // added once all products are in.  (ptxas still serialises this kernel's
+  // wgmmas, advisory C7515: it schedules the packing of the next A
+  // fragment into registers an issued wgmma reads.)
+  float acc[PP / 2];
+  for (int u = 0; u < n_kt; ++u) {
+    const int s = u % kStages;
+    mbar_wait(&full[s], (u / kStages) & 1);
+    const uint32_t bt = smem_u32(ring + s * stage);
+    const uint32_t xt = bt + nr * kRegion;
+
+    float gs[kR / 2];  // C B_j^T: 64 rows x 64 keys
+    if (u == 0) mbar_wait(bar_c, 0);
+    wgmma_fence();
+    for (int kk = 0; kk < nk; ++kk) {
+      const uint32_t off = (kk / 4) * kRegion + (kk % 4) * 32;
+      wgmma_ss<kR, 0, 0>(gs, desc_sw128(ca + off, 16, 1024),
+                         desc_sw128(bt + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(gs);
+
+    // o L: row rr sees key kc <= rr with weight exp(cum_rr - cum_kc)
+#pragma unroll
+    for (int j = 0; j < kR / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kc = u * kR + 8 * j + 2 * t4 + (e & 1);
+        const int rr = rr0 + 8 * (e >> 1);
+        gs[4 * j + e] =
+            rr >= kc ? gs[4 * j + e] * exp2_ftz(cum_s[rr] - cum_s[kc])
+                     : 0.f;
+      }
+    uint32_t ga[kR / 16][4], gl[kR / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kR / 16; ++kk) a_frag_split(gs, kk, ga[kk], gl[kk]);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kR / 16; ++kk) {
+      const uint64_t dx = desc_sw128(xt + kk * 16 * kRowBytes, kRegion, 1024);
+      wgmma_rs<PP, 1>(acc, ga[kk], dx, u > 0 || kk > 0);
+      wgmma_rs<PP, 1>(acc, gl[kk], dx, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[s]);
+  }
+
+  float ys[PP / 2];  // C (s_in hi + s_in lo)^T
+  wgmma_fence();
+  for (int q = 0; q < 2; ++q) {
+    for (int kk = 0; kk < nk; ++kk) {
+      const uint32_t k_off = (kk % 4) * 32;
+      wgmma_ss<PP, 0, 0>(
+          ys, desc_sw128(ca + (kk / 4) * kRegion + k_off, 16, 1024),
+          desc_sw128(sa + (q * nr + kk / 4) * s_region + k_off, 16, 1024),
+          q > 0 || kk > 0);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(ys);
+  const float e0 = exp2_ftz(cum_s[rr0]), e1 = exp2_ftz(cum_s[rr0 + 8]);
+#pragma unroll
+  for (int j = 0; j < PP / 8; ++j) {
+    acc[4 * j] += e0 * ys[4 * j];
+    acc[4 * j + 1] += e0 * ys[4 * j + 1];
+    acc[4 * j + 2] += e1 * ys[4 * j + 2];
+    acc[4 * j + 3] += e1 * ys[4 * j + 3];
+  }
+
+  // y through shared memory (the ring is free now), so that each row of P
+  // bf16 leaves in 16-byte pieces from neighbouring threads; rows are
+  // padded by 16 bytes so the quad rows of a warp hit distinct banks
+  uint32_t* stage_y = reinterpret_cast<uint32_t*>(ring);  // kR x ld
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = w * 16 + lane / 4 + 8 * r;
+#pragma unroll
+    for (int j = 0; j < PP / 8; ++j)
+      stage_y[row * ld + 4 * j + t4] =
+          pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+  }
+  named_sync(1, kConsumers);
+  const int chunks = P / 8;  // 16-byte pieces of a row
+  for (int i = tid; i < kR * chunks; i += kConsumers) {
+    const int row = i / chunks, piece = i % chunks;
+    const int s_row = it * kR + row;
+    if (s_row < S)
+      *reinterpret_cast<uint4*>(y + (((size_t)b * S + s_row) * H + h) * P +
+                                8 * piece) =
+          reinterpret_cast<const uint4*>(stage_y + row * ld)[piece];
+  }
+}
+
+template <int NP, int MT>
+int launch_states(const CUtensorMap& tx, const CUtensorMap& tb,
+                  const void* a, float* states, float* cum, int B, int S,
+                  int H, int P, int G, int N, int nc, cudaStream_t stream) {
+  constexpr int NR = (NP + kRegionCols - 1) / kRegionCols;
+  const size_t smem = 1024 + (size_t)(kStages * (MT + NR) + NR) * kRegion +
+                      (2 * kT + 8) * sizeof(float) + 64;
+  int err = set_smem(ssd_states<NP, MT>, smem);
+  if (err) return err;
+  ssd_states<NP, MT><<<dim3(nc, H, B), kThreads, smem, stream>>>(
+      tx, tb, static_cast<const __nv_bfloat16*>(a), states, cum, S, H, P, G,
+      N, nc);
+  return (int)cudaGetLastError();
+}
+
+template <int PP>
+int launch_scan(const CUtensorMap& tc, const CUtensorMap& tb,
+                const CUtensorMap& tx, const CUtensorMap& ts,
+                const float* cum, void* y, int B, int S, int H, int P, int G,
+                int N, int nc, cudaStream_t stream) {
+  constexpr int PR = (PP + kRegionCols - 1) / kRegionCols;
+  const int nr = (N + kRegionCols - 1) / kRegionCols;
+  const size_t smem = 1024 + (size_t)nr * (kRegion + 2 * PP * kRowBytes) +
+                      (size_t)kStages * (nr + PR) * kRegion +
+                      kT * sizeof(float) + 64;
+  int err = set_smem(ssd_scan<PP>, smem);
+  if (err) return err;
+  ssd_scan<PP><<<dim3((S + kR - 1) / kR, H, B), kThreads, smem, stream>>>(
+      tc, tb, tx, ts, cum, static_cast<__nv_bfloat16*>(y), S, H, P, G, N,
+      nc);
+  return (int)cudaGetLastError();
+}
+
+// The three passes of one ssd() call, on `stream`.  Scratch from the
+// wrapper: states (B, nc, H, P, N) float32, s_in (B, nc, H, 2, P, N) bf16
+// (hi, lo), cum (B, H, nc, kT) float32, with nc = ceil(S / kT).
+int launch(const void* x, const void* a, const void* b, const void* c,
+           void* y, void* final_state, void* states, void* s_in, void* cum,
+           int B, int S, int H, int P, int G, int N, cudaStream_t stream) {
+  const int nc = (S + kT - 1) / kT;
+  const cuuint64_t e = 2;  // bytes of a bf16
+  const cuuint32_t box[4] = {kRegionCols, 1, kR, 1};
+  const cuuint64_t xdims[4] = {(cuuint64_t)P, (cuuint64_t)H, (cuuint64_t)S,
+                               (cuuint64_t)B};
+  const cuuint64_t xstr[3] = {P * e, H * P * e, (cuuint64_t)S * H * P * e};
+  const cuuint64_t bdims[4] = {(cuuint64_t)N, (cuuint64_t)G, (cuuint64_t)S,
+                               (cuuint64_t)B};
+  const cuuint64_t bstr[3] = {N * e, G * N * e, (cuuint64_t)S * G * N * e};
+  const int PP = round_up(P, 16);
+  const cuuint32_t sbox[3] = {kRegionCols, (cuuint32_t)PP, 1};
+  const cuuint64_t sdims[3] = {(cuuint64_t)N, (cuuint64_t)P,
+                               (cuuint64_t)B * nc * H * 2};
+  const cuuint64_t sstr[2] = {N * e, (cuuint64_t)P * N * e};
+  CUtensorMap tx, tb, tc, ts;
+  int err = encode_bf16_map(&tx, x, 4, xdims, xstr, box);
+  if (!err) err = encode_bf16_map(&tb, b, 4, bdims, bstr, box);
+  if (!err) err = encode_bf16_map(&tc, c, 4, bdims, bstr, box);
+  if (!err) err = encode_bf16_map(&ts, s_in, 3, sdims, sstr, sbox);
+  if (err) return err;
+
+  float* st = static_cast<float*>(states);
+  float* cm = static_cast<float*>(cum);
+#define KSP_STATES(np, mt)                                                 \
+  case np * 4 + mt:                                                        \
+    err = launch_states<np, mt>(tx, tb, a, st, cm, B, S, H, P, G, N, nc,  \
+                                stream);                                   \
+    break;
+  switch (round_up(N, 16) * 4 + (P > 64 ? 2 : 1)) {
+    KSP_STATES(16, 1) KSP_STATES(32, 1) KSP_STATES(48, 1) KSP_STATES(64, 1)
+    KSP_STATES(80, 1) KSP_STATES(96, 1) KSP_STATES(112, 1)
+    KSP_STATES(128, 1) KSP_STATES(16, 2) KSP_STATES(32, 2)
+    KSP_STATES(48, 2) KSP_STATES(64, 2) KSP_STATES(80, 2) KSP_STATES(96, 2)
+    KSP_STATES(112, 2) KSP_STATES(128, 2)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef KSP_STATES
+  if (err) return err;
+
+  const int PN = P * N;
+  ssd_pass<<<dim3((PN + 255) / 256, H, B), 256, 0, stream>>>(
+      st, cm, static_cast<__nv_bfloat16*>(s_in),
+      static_cast<float*>(final_state), H, PN, nc);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+
+#define KSP_SCAN(pp)                                                       \
+  case pp:                                                                 \
+    return launch_scan<pp>(tc, tb, tx, ts, cm, y, B, S, H, P, G, N, nc,    \
+                           stream);
+  switch (PP) {
+    KSP_SCAN(16) KSP_SCAN(32) KSP_SCAN(48) KSP_SCAN(64)
+    KSP_SCAN(80) KSP_SCAN(96) KSP_SCAN(112) KSP_SCAN(128)
+  }
+#undef KSP_SCAN
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace ssd3
+
 extern "C" {
 
 // Returns cudaGetLastError() after the launch: nonzero means the launch was
@@ -283,11 +808,15 @@ int ksp_ssd_f32(const void* x, const void* a, const void* b, const void* c,
   return launch<float>(x, a, b, c, y, final_state, B, S, H, P, G, N, stream);
 }
 
+// The bf16 instance: three kernels on `stream`, with scratch allocated by
+// the wrapper (see ssd3::launch); the wrapper checks P % 8 == 0,
+// N % 8 == 0 and 16-byte aligned pointers (TMA's rules).
 int ksp_ssd_bf16(const void* x, const void* a, const void* b, const void* c,
-                 void* y, void* final_state, int B, int S, int H, int P,
-                 int G, int N, cudaStream_t stream) {
-  return launch<__nv_bfloat16>(x, a, b, c, y, final_state, B, S, H, P, G, N,
-                               stream);
+                 void* y, void* final_state, void* states, void* s_in,
+                 void* cum, int B, int S, int H, int P, int G, int N,
+                 cudaStream_t stream) {
+  return ssd3::launch(x, a, b, c, y, final_state, states, s_in, cum, B, S, H,
+                      P, G, N, stream);
 }
 
 }  // extern "C"

@@ -5,13 +5,25 @@
 ``kernels/ssd/ops.py::ssd_pallas``, in the model layout.  A tensor on the
 CPU goes to the plain version (:mod:`repro_torch.kernels.ssd.ref`); a
 tensor on CUDA goes to the hand-written kernel (``csrc/ssd.cu``) or raises.
-``LAUNCHES["ssd"]`` counts kernel launches and nothing else.
+``LAUNCHES["ssd"]`` counts calls that launched the kernel: one per
+:func:`ssd` call, whatever the number of device kernels the call issues.
 
-The kernel carries the state every ``SUB_CHUNK`` = 64 rows, whatever the
-model's ``chunk``: the scan's result does not depend on the chunk size
-(``tests/test_models.py::test_mamba_chunk_invariance``), and 64 rows keep
-the working set in shared memory (see the source).  The plain version
-chunks by ``chunk``.  The kernel reads ragged tails as zeros, so nothing is
+The CUDA source has two instances, picked here by dtype:
+
+* bfloat16 (serving): three device kernels per call (chunk states, state
+  passing, chunk scan) with tensor-core products (``wgmma``) on bf16
+  operands, float32 accumulation and tiles brought in by TMA.  They chunk by
+  ``CHUNK_BF16`` = 256 rows whatever the model's ``chunk``, and take their
+  scratch from this wrapper: the chunk states (float32), the states
+  entering each chunk (a bf16 hi and lo pair) and the chunk cumsums
+  (float32).  TMA needs ``P`` and ``N`` multiples of 8 and 16-byte aligned
+  tensors.
+* float32 (parity checks): one device kernel, one block per (b, h) carrying
+  the state every ``SUB_CHUNK`` = 64 rows on the CUDA cores.
+
+The scan's result does not depend on the chunk size
+(``tests/test_models.py::test_mamba_chunk_invariance``); the plain version
+chunks by ``chunk``.  The kernels read ragged tails as zeros, so nothing is
 padded.  The scan starts from a zero state: the reference's
 ``initial_state`` argument has no caller in either package and is not
 carried over.
@@ -27,15 +39,18 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd import ref
 
-__all__ = ["LAUNCHES", "SOURCE", "SUB_CHUNK", "reset_launches", "ssd"]
+__all__ = ["LAUNCHES", "SOURCE", "SUB_CHUNK", "CHUNK_BF16", "reset_launches",
+           "ssd"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
-SUB_CHUNK = 64        # kSub in csrc/ssd.cu
+SUB_CHUNK = 64        # kSub in csrc/ssd.cu (float32 instance)
+CHUNK_BF16 = 256      # ssd3::kT in csrc/ssd.cu (bf16 instance)
 MAX_P = MAX_N = 128   # kMaxP / kMaxN in csrc/ssd.cu
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# (x, a, b, c, y, final, B, S, H, P, G, N, stream)
-_ARGS = [_P] * 6 + [_I] * 6 + [_P]
-SIGNATURES = {"ksp_ssd_f32": _ARGS, "ksp_ssd_bf16": _ARGS}
+# f32: (x, a, b, c, y, final, B, S, H, P, G, N, stream)
+# bf16: (x, a, b, c, y, final, states, s_in, cum, B, S, H, P, G, N, stream)
+SIGNATURES = {"ksp_ssd_f32": [_P] * 6 + [_I] * 6 + [_P],
+              "ksp_ssd_bf16": [_P] * 9 + [_I] * 6 + [_P]}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 LAUNCHES = {"ssd": 0}
@@ -74,6 +89,8 @@ def _check(X, A, Bm, Cm, chunk):
     if X.device.type == "cuda" and (P > MAX_P or N > MAX_N):
         raise ValueError(f"the kernel takes P <= {MAX_P} and N <= {MAX_N}, "
                          f"got P={P} N={N}")
+    if X.device.type == "cuda" and X.dtype == torch.bfloat16:
+        build.check_tma(P, N, X=X, Bm=Bm, Cm=Cm)
     if X.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {X.device}")
     return B, S, H, P, G, N
@@ -94,8 +111,18 @@ def ssd(X: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     y = torch.empty_like(X)
     final = torch.empty((B, H, P, N), dtype=torch.float32, device=X.device)
     lib = build.load(SOURCE, SIGNATURES)
-    build.launch(lib, f"ksp_ssd_{_SUFFIX[X.dtype]}", X.device,
-                 X.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-                 y.data_ptr(), final.data_ptr(), B, S, H, P, G, N)
+    ptrs = [X.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+            y.data_ptr(), final.data_ptr()]
+    if X.dtype == torch.bfloat16:
+        nc = -(-S // CHUNK_BF16)
+        states = torch.empty((B, nc, H, P, N), dtype=torch.float32,
+                             device=X.device)
+        s_in = torch.empty((B, nc, H, 2, P, N), dtype=torch.bfloat16,
+                           device=X.device)
+        cum = torch.empty((B, H, nc, CHUNK_BF16), dtype=torch.float32,
+                          device=X.device)
+        ptrs += [states.data_ptr(), s_in.data_ptr(), cum.data_ptr()]
+    build.launch(lib, f"ksp_ssd_{_SUFFIX[X.dtype]}", X.device, *ptrs,
+                 B, S, H, P, G, N)
     LAUNCHES["ssd"] += 1
     return y, final

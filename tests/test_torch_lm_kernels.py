@@ -10,7 +10,11 @@ sequential recurrence), and through the port, on the sweeps of
 flash attention 2e-5 in float32 and 2e-2 in bfloat16, SSD 5e-3.
 
 The CUDA kernels have no CPU mode: the ``cuda``-marked tests hold them
-against the plain versions on the card and skip here.
+against the plain versions on the card and skip here.  What the bf16
+kernels compute is rehearsed here instead: plain torch emulations of their
+arithmetic (tiles, passes and bf16 operand roundings, ``_flash_bf16`` and
+``_ssd_three_pass`` below, test helpers only) are held against the plain
+versions and against the reference's bf16 model path and Pallas kernels.
 """
 
 import jax.numpy as jnp
@@ -22,6 +26,8 @@ from repro.kernels import flash_attention as flash_pallas
 from repro.kernels import ssd_pallas
 from repro.kernels.flash_attention.ref import mha_reference
 from repro.kernels.ssd.ref import ssd_reference
+from repro.models.attention import chunked_gqa_attention
+from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 
@@ -218,7 +224,8 @@ class TestKernelsOnCard:
                 ((2, 64, 192, 4, 4, 32), False, None, torch.float32),
                 ((1, 100, 100, 2, 2, 32), True, None, torch.float32),
                 ((1, 256, 256, 2, 2, 32), True, 64, torch.float32),
-                ((2, 300, 300, 32, 32, 80), True, None, torch.bfloat16)]):
+                ((2, 300, 300, 32, 32, 80), True, None, torch.bfloat16),
+                ((1, 200, 200, 4, 2, 128), True, None, torch.bfloat16)]):
             q, k, v = (_t(a, dtype).cuda() for a in _qkv(seed, *shape))
             before = flash_ops.LAUNCHES["flash_attention"]
             got = flash_ops.flash_attention(q, k, v, causal=causal,
@@ -235,7 +242,8 @@ class TestKernelsOnCard:
         for seed, (shape, chunk, dtype) in enumerate([
                 ((2, 256, 4, 64, 2, 64), 64, torch.float32),
                 ((1, 96, 2, 32, 1, 16), 32, torch.float32),
-                ((2, 300, 80, 64, 1, 64), 256, torch.bfloat16)]):
+                ((2, 300, 80, 64, 1, 64), 256, torch.bfloat16),
+                ((1, 300, 4, 128, 2, 128), 256, torch.bfloat16)]):
             args = [_t(a, dtype).cuda() for a in _ssd_inputs(seed, *shape)]
             before = ssd_ops.LAUNCHES["ssd"]
             y, st = ssd_ops.ssd(*args, chunk)
@@ -244,3 +252,201 @@ class TestKernelsOnCard:
             tol = SSD_TOL if dtype == torch.float32 else BF16
             torch.testing.assert_close(y.float(), yr.float(), **tol)
             torch.testing.assert_close(st, sr, **SSD_TOL)
+
+
+# ------------------------------------------- rehearsal of the bf16 kernels
+def _bf(a):
+    """Round to bf16 and back to float32 (an operand the kernel rounds)."""
+    return a.to(torch.bfloat16).float()
+
+
+def _flash_bf16(q, k, v, *, causal=True, window=None, block=128):
+    """The bf16 flash kernel's arithmetic in plain torch (float32 values of
+    bf16 tensors in the model layout): 128-row query blocks, key tiles of
+    128 (hd <= 80) or 64 keys from the window's lower edge to
+    the causal frontier, q.k of the bf16 operands scaled in float32 in the
+    log2 domain, the finite -1e30 mask, an online softmax whose row sum
+    takes the float32 p, and p rounded to bf16 for p.v with float32
+    accumulation."""
+    B, Sq, H, hd = q.shape
+    bk = 128 if hd <= 80 else 64
+    Skv, K = k.shape[1], k.shape[2]
+    qf = q.float().transpose(1, 2)                           # (B,H,Sq,hd)
+    kf = k.float().transpose(1, 2).repeat_interleave(H // K, dim=1)
+    vf = v.float().transpose(1, 2).repeat_interleave(H // K, dim=1)
+    scale_log2 = (1.0 / hd ** 0.5) * 1.4426950408889634
+    out = torch.empty((B, H, Sq, hd))
+    for q0 in range(0, Sq, block):
+        rows = torch.arange(q0, min(q0 + block, Sq))[:, None]
+        kv_end = min(Skv, q0 + block) if causal else Skv
+        t_end = -(-kv_end // bk)
+        t_begin = max(0, q0 - window + 1) // bk if window else 0
+        t_begin = min(t_begin, t_end - 1)
+        m = torch.full((B, H, len(rows)), flash_ops.ref.NEG_INF)
+        l = torch.zeros((B, H, len(rows)))
+        o = torch.zeros((B, H, len(rows), hd))
+        for t in range(t_begin, t_end):
+            keys = torch.arange(t * bk, min((t + 1) * bk, Skv))[None]
+            s = qf[:, :, q0:q0 + len(rows)] @ kf[:, :, keys[0]].transpose(
+                -1, -2) * scale_log2
+            ok = torch.ones((len(rows), keys.shape[1]), dtype=torch.bool)
+            if causal:
+                ok &= keys <= rows
+            if window:
+                ok &= keys > rows - window
+            s = torch.where(ok, s, flash_ops.ref.NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            c = torch.exp2(m - m_new)
+            p = torch.exp2(s - m_new[..., None])
+            l = l * c + p.sum(-1)
+            o = o * c[..., None] + _bf(p) @ vf[:, :, keys[0]]
+            m = m_new
+        out[:, :, q0:q0 + len(rows)] = o / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).to(torch.bfloat16)
+
+
+def _ssd_three_pass(X, A, Bm, Cm, T, *, bf16=True):
+    """The bf16 SSD kernel's three passes in plain torch, chunk T: (1) each
+    chunk's state x^T (B o decay), (2) the states entering each chunk,
+    (3) per chunk y = exp(cum) (C s_in^T) + ((C B^T) o L) x, where each
+    operand the kernel computes (B o decay, s_in, (C B^T) o L) is a bf16 hi
+    + lo pair.  With ``bf16=False`` nothing is rounded: the chunked dual
+    form in float32."""
+    def rnd(t):  # the hi + lo pair's value
+        if not bf16:
+            return t
+        hi = _bf(t)
+        return hi + _bf(t - hi)
+    b, S, H, P = X.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc = -(-S // T)
+    pad = nc * T - S
+
+    def chunks(t):  # (b, S, ...) -> (b, nc, T, ...), zero tails
+        t = torch.nn.functional.pad(t.float(), (0, 0) * (t.dim() - 2)
+                                    + (0, pad))
+        return t.reshape(b, nc, T, *t.shape[2:])
+    x, a = chunks(X), chunks(A)
+    Bh = chunks(Bm).repeat_interleave(H // G, dim=3)        # (b,nc,T,H,N)
+    Ch = chunks(Cm).repeat_interleave(H // G, dim=3)
+    cum = torch.cumsum(a, dim=2)                             # (b,nc,T,H)
+    bd = rnd(Bh * torch.exp(cum[:, :, -1:] - cum)[..., None])
+    own = torch.einsum("bcthp,bcthn->bchpn", x, bd)
+    run = torch.zeros((b, H, P, N))
+    s_in = []
+    for c in range(nc):
+        s_in.append(rnd(run))
+        run = run * torch.exp(cum[:, c, -1])[..., None, None] + own[:, c]
+    s_in = torch.stack(s_in, 1)                              # (b,nc,H,P,N)
+    y = torch.einsum("bcthn,bchpn->bcthp", Ch, s_in) * \
+        torch.exp(cum)[..., None]
+    lower = torch.ones((T, T), dtype=torch.bool).tril()[None, None, :, :,
+                                                          None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (b,nc,i,j,H)
+    L = torch.where(lower, torch.exp(torch.where(lower, diff, 0.0)), 0.0)
+    g = rnd(torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh) * L)
+    y = y + torch.einsum("bcijh,bcjhp->bcihp", g, x)
+    return y.reshape(b, nc * T, H, P)[:, :S].to(X.dtype), run
+
+
+_FLASH_CASES = [
+    ((1, 128, 128, 4, 2, 64), True, None),
+    ((2, 64, 192, 4, 4, 32), False, None),
+    ((2, 128, 128, 2, 1, 64), True, None),     # MQA
+    ((1, 256, 256, 8, 2, 16), True, None),
+    ((1, 256, 256, 2, 2, 32), True, 64),       # window
+    ((1, 100, 100, 2, 2, 32), True, None),     # unaligned S
+    ((1, 300, 300, 2, 2, 80), True, None),     # zamba2's hd, 3 query blocks
+]
+
+
+class TestBf16Rehearsal:
+    @pytest.mark.parametrize("shape,causal,window", _FLASH_CASES)
+    def test_flash_emulation(self, shape, causal, window):
+        """The bf16 kernel's arithmetic against the plain version, the
+        reference's bf16 serving path and its Pallas kernel (2e-2)."""
+        q, k, v = _qkv(sum(shape), *shape)
+        tq, tk, tv = (_t(a, torch.bfloat16) for a in (q, k, v))
+        got = _flash_bf16(tq, tk, tv, causal=causal, window=window)
+        want = flash_ops.flash_attention(tq, tk, tv, causal=causal,
+                                         window=window)
+        torch.testing.assert_close(got.float(), want.float(), **BF16)
+        jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+        model = chunked_gqa_attention(jq, jk, jv, causal=causal,
+                                      window=window)
+        np.testing.assert_allclose(_f32(got), _f32(model), **BF16)
+        pallas = flash_pallas(jq, jk, jv, causal=causal, window=window,
+                              block_q=64, block_k=64, interpret=True)
+        np.testing.assert_allclose(_f32(got), _f32(pallas), **BF16)
+
+    @pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+        (1, 128, 2, 16, 1, 32, 32),
+        (2, 256, 4, 64, 2, 64, 64),
+        (1, 96, 2, 32, 1, 16, 32),     # ragged tail
+        (1, 128, 8, 16, 4, 16, 128),
+        (1, 32, 2, 8, 1, 8, 16),       # P = N = 8
+        (1, 300, 2, 16, 1, 128, 256),  # N = 128, two chunks of 256
+    ])
+    def test_ssd_emulation(self, B, S, H, P, G, N, chunk):
+        """The three bf16 passes against the plain version on the same
+        bf16 inputs and against the reference's Pallas kernel (interpret
+        mode) on their float32 values: y 2e-2, the float32 state 5e-3."""
+        X, A, Bm, Cm = (_t(a, torch.bfloat16) for a in
+                        _ssd_inputs(S + N, B, S, H, P, G, N))
+        y, st = _ssd_three_pass(X, A, Bm, Cm, ssd_ops.CHUNK_BF16)
+        assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+        yr, sr = ssd_ops.ssd(X, A, Bm, Cm, chunk)
+        torch.testing.assert_close(y.float(), yr.float(), **BF16)
+        torch.testing.assert_close(st, sr, **SSD_TOL)
+        f = lambda t: jnp.asarray(t.float().numpy())  # noqa: E731
+        yp, sp = ssd_pallas(f(X), f(A), f(Bm), f(Cm), chunk=chunk,
+                            interpret=True)
+        np.testing.assert_allclose(_f32(y), _f32(yp), **BF16)
+        np.testing.assert_allclose(_f32(st), _f32(sp), **SSD_TOL)
+
+    @pytest.mark.parametrize("T", [64, 128, 256])
+    def test_three_pass_is_the_scan(self, T):
+        """Unrounded, the three passes are the plain scan in float32 for
+        any chunk (the chunk-invariance tolerance, 1e-4)."""
+        X, A, Bm, Cm = (_t(a) for a in _ssd_inputs(T, 2, 300, 4, 16, 2, 32))
+        y, st = _ssd_three_pass(X, A, Bm, Cm, T, bf16=False)
+        yr, sr = ssd_ops.ref.ssd(X, A, Bm, Cm, 64)
+        torch.testing.assert_close(y, yr, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(st, sr, atol=1e-4, rtol=1e-4)
+
+    def test_tma_contract(self):
+        """The bf16 kernels load rows with TMA: widths must be multiples of
+        8 elements and base pointers 16-byte aligned, or the wrapper
+        raises."""
+        t = torch.zeros(64, dtype=torch.bfloat16)
+        build.check_tma(8, 16, 80, t=t)
+        with pytest.raises(ValueError):
+            build.check_tma(8, 12, t=t)
+        with pytest.raises(ValueError):
+            build.check_tma(8, t=t[1:])
+
+
+@pytest.mark.cuda
+class TestBf16KernelsAtServingWidth:
+    def test_flash(self):
+        """zamba2-2.7b's prefill attention at one request: (1, 2048, 32,
+        80), causal."""
+        if not torch.cuda.is_available():
+            pytest.skip("the CUDA kernel has no CPU mode; needs a CUDA card")
+        q, k, v = (_t(a, torch.bfloat16).cuda()
+                   for a in _qkv(21, 1, 2048, 2048, 32, 32, 80))
+        got = flash_ops.flash_attention(q, k, v, causal=True)
+        want = flash_ops.ref.flash_attention(q, k, v, causal=True)
+        torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+    def test_ssd(self):
+        """zamba2-2.7b's Mamba2 scan at one request: x (1, 2048, 80, 64),
+        G = 1, N = 64, the model's chunk of 256."""
+        if not torch.cuda.is_available():
+            pytest.skip("the CUDA kernel has no CPU mode; needs a CUDA card")
+        args = [_t(a, torch.bfloat16).cuda()
+                for a in _ssd_inputs(22, 1, 2048, 80, 64, 1, 64)]
+        y, st = ssd_ops.ssd(*args, 256)
+        yr, sr = ssd_ops.ref.ssd(*args, 256)
+        torch.testing.assert_close(y.float(), yr.float(), **BF16)
+        torch.testing.assert_close(st, sr, **SSD_TOL)
