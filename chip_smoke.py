@@ -12,21 +12,27 @@ Phases (any failure exits non-zero; nothing is caught):
 3. kernel parity on the tests' sweeps: ``oom_probe`` and ``wastage_eval``
    on CUDA tensors against their plain PyTorch versions on the same
    tensors (``viol`` exact; floats rtol 1e-4 / atol 1e-2, the reduction
-   order differs);
+   order differs), one group at a time and grouped (one table per dt);
+   then ``fleet_engine`` against the plain engine (``kernels.wastage.ref.
+   plain_engine``) on the same CUDA group tables over the engine tests'
+   sweep (every retry kind, per-lane bumps with NaN, unsatisfiable lanes,
+   max_attempts, K = 1 and 32, zero-length lanes, ulp-edge starts at three
+   dt): attempts and successes exact, wastage rtol 1e-4;
 4. main path at paper size: ``evaluate_workflow`` over the eager and sarek
    workflows with all 9 methods on the card, then with ``device="cpu"``
    (the plain path); chosen k per family, retries and failures must be
-   equal, GB·s within the reference's own tolerances; the ``oom_probe``
-   launch count must have grown during the card runs;
+   equal, GB·s within the reference's own tolerances; exactly one
+   ``fleet_engine`` launch per fleet call on the card and no probe launch;
 5. main path at fleet scale: sarek with 2000 executions per family
-   (20,000 executions) on the card: stage wall times, lanes, launches;
-6. kernel parity at every ``(B, K, T, dt)`` that ``oom_probe`` was called
-   with in phases 4 and 5 (every plan width the engine packs: 1 for the
-   single-segment baselines, k, and ks+auto's widest candidate), on
-   seeded engine-layout inputs (sentinel-padded slots, zero-length pad
-   lanes), same checks as phase 3.  Then the kernels are timed (CUDA
-   events, median after warm-up, L2 flushed) at phase 5's attempt-1 probe
-   shapes, beside their byte bound;
+   (20,000 executions) on the card: stage wall times, lanes, launches (as
+   in phase 4), and the fit's and the replay's fleet calls timed apart
+   (``FleetCalls``: each call ends in a synchronise);
+6. ``fleet_engine`` against the plain engine at every group table phases 4
+   and 5 launched, same checks as phase 3.  Then the wastage kernels are
+   timed (CUDA events, median after warm-up, L2 flushed) beside their byte
+   bound and plain versions: both probes in one launch over phase 5's
+   attempt-1 groups of the ks+ job (checked against the plain versions
+   first), ``fleet_engine`` over the replay's table;
 7. build of the LM kernels ``ssd.cu`` and ``flash_attention.cu`` (started
    in phase 2): build seconds, and for every bf16 kernel its registers and
    spills from ``ptxas -v`` and its count of ``HGMMA`` (tensor-core
@@ -80,20 +86,26 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM float32, outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 RTOL, ATOL = 1e-4, 1e-2       # kernel vs plain: reduction order only
+ENGINE_RTOL = 1e-4            # fleet_engine vs plain_engine wastage
 # kernel vs plain, (rtol, atol) by dtype: the reference tests' tolerances
 FLASH_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 2e-2)}
 SSD_TOL = {torch.float32: (5e-3, 5e-3), torch.bfloat16: (2e-2, 2e-2)}
 WASTAGE = "src/repro_torch/kernels/wastage/csrc/wastage.cu"
 SOURCES = {"oom_probe": WASTAGE, "wastage_eval": WASTAGE,
+           "fleet_engine": WASTAGE,
            "ssd": "src/repro_torch/kernels/ssd/csrc/ssd.cu",
            "flash_attention":
                "src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention.cu"}
 REPLACES = {"oom_probe": "src/repro/kernels/wastage/kernel.py:67",
+            # every attempt of the reference engine's while_loop, each
+            # attempt the oom_probe kernel's work
+            "fleet_engine": "src/repro/kernels/wastage/kernel.py:67",
             "wastage_eval": "src/repro/kernels/wastage/kernel.py:27",
             "ssd": "src/repro/kernels/ssd/kernel.py:28",
             "flash_attention":
                 "src/repro/kernels/flash_attention/kernel.py:33"}
+KW = dict(seed=0, train_frac=0.5, k=4, machine_memory=128.0)  # the cells
 ARCH = "zamba2-2.7b"
 SERVE_BATCHES = ((4, 2048), (3, 1000))  # (requests, prompt tokens)
 NEW_TOKENS = 32
@@ -120,7 +132,8 @@ def parity_cases():
     """The sweeps of the kernel tests."""
     rng = np.random.default_rng(0)
     cases = []
-    for B, T, K in [(8, 512, 4), (16, 700, 8), (3, 64, 1), (5, 96, 4)]:
+    for B, T, K in [(8, 512, 4), (16, 700, 8), (3, 64, 1), (5, 96, 4),
+                    (5, 97, 4)]:  # T % 4 != 0: scalar loads
         cases.append(("sweep", _case(rng, B, T, K, 1.0)))
     for dt in (0.5, 1.0, 2.5):
         cases.append((f"dt={dt}", _case(rng, 12, 700, 4, dt)))
@@ -132,6 +145,8 @@ def parity_cases():
         cases.append((f"zero-plan K={K}", (c[0], np.zeros((6, K))) + c[2:]))
     c = _case(rng, 6, 256, 4, 1.0, peaks=rng.uniform(1, 10, (6, 4)))
     cases.append(("non-monotone", c))
+    c = _case(rng, 6, 256, 4, 1.0)
+    cases.append(("decreasing starts", (c[0][:, ::-1] * 0.5,) + c[1:]))
     return [(name, to_cuda(*c[:4]) + (c[4],)) for name, c in cases]
 
 
@@ -164,38 +179,255 @@ class ShapeRecorder:
         setattr(self.module, self.name, self.orig)
 
 
-def probe_shapes(ops):
-    """Records the ``(B, K, T, dt)`` of every ``oom_probe`` call."""
-    return ShapeRecorder(ops, "oom_probe",
-                         lambda s, p, m, n, dt=1.0:
-                         (*s.shape, m.shape[1], float(dt)))
+class FleetCalls:
+    """While active, times every ``simulate_fleet_many`` call of the main
+    path on the host clock, each ending in a synchronise: the fit's (by
+    ``KSPlusAuto`` through ``core.fleet.simulate_fleet``) and the replay's
+    (``sched.simulator`` binds its own name).  ``calls`` holds ``(stage,
+    seconds, lanes)`` per call; it only records."""
+
+    def __init__(self):
+        from repro_torch.core import fleet
+        from repro_torch.sched import simulator
+        self.targets = ((fleet, "fit"), (simulator, "replay"))
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = [(mod, mod.simulate_fleet_many) for mod, _ in
+                     self.targets]
+        for (mod, stage), (_, orig) in zip(self.targets, self.orig):
+            def timed(jobs, mems, *args, _orig=orig, _stage=stage, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = _orig(jobs, mems, *args, **kw)
+                torch.cuda.synchronize()
+                self.calls.append((_stage, time.perf_counter() - t0,
+                                   sum(len(r.attempts) for r in out)))
+                return out
+            mod.simulate_fleet_many = timed
+        return self
+
+    def __exit__(self, *exc):
+        for mod, orig in self.orig:
+            mod.simulate_fleet_many = orig
+
+    def split(self):
+        out = {}
+        for stage, secs, lanes in self.calls:
+            s = out.setdefault(stage, {"calls": 0, "seconds": 0.0,
+                                       "lanes": 0})
+            s["calls"] += 1
+            s["seconds"] += secs
+            s["lanes"] += lanes
+        return out
 
 
-def main_path_cases(shapes, seed=0):
-    """Seeded inputs in the engine's layout at each recorded shape: sorted
-    starts from 0 with sentinel starts past each lane's segment count (its
-    last peak replicated), monotone peaks, zero-length pad lanes."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    for B, K, T, dt in sorted(shapes):
-        u = lambda *sz: torch.rand(*sz, generator=g, device="cuda")  # noqa: E731
-        starts = torch.sort(u(B, K) * (0.8 * T * dt), dim=1).values
-        starts[:, 0] = 0.0
-        peaks = torch.sort(1.0 + 5.0 * u(B, K), dim=1).values
-        nseg = torch.randint(1, K + 1, (B,), generator=g, device="cuda")
-        pad = torch.arange(K, device="cuda")[None, :] >= nseg[:, None]
-        starts = torch.where(pad, 1e30, starts).contiguous()
-        last = torch.gather(peaks, 1, (nseg - 1)[:, None])
-        peaks = torch.where(pad, last, peaks).contiguous()
-        # noisy ramps of per-lane height: some lanes fit, others cross
-        # the step allocation early or late
-        ramp = 0.5 + torch.arange(T, device="cuda") / T
-        noise = 1.0 + 0.1 * torch.randn(B, T, generator=g, device="cuda")
-        mems = ((1.0 + 4.0 * u(B, 1)) * ramp * noise.abs()).contiguous()
-        lengths = torch.randint(1, T + 1, (B,), generator=g, device="cuda",
-                                dtype=torch.int32)
-        lengths[B - B // 8:] = 0  # the engine's pow2 lane padding
-        yield (f"main {B}x{T} K={K} dt={dt}",
-               (starts, peaks, mems, lengths, dt))
+def fleet_scale(recorders=()):
+    """Phase 5: sarek with 2000 executions per family on the card: stage
+    seconds, wall, launches, and the fit's and the replay's fleet calls
+    timed apart (:class:`FleetCalls`).  ``recorders`` are entered around
+    the run."""
+    import contextlib
+
+    from repro_torch.kernels.wastage import ops
+    from repro_torch.sched import evaluate_workflow
+    from repro_torch.traces import sarek
+    big = sarek(instances_per_family=2000)
+    ops.reset_launches()
+    with contextlib.ExitStack() as stack:
+        for r in recorders:
+            stack.enter_context(r)
+        calls = stack.enter_context(FleetCalls())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluate_workflow(big, device="cuda", **KW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split = calls.split()
+    fit_fleet = split.get("fit", {}).get("seconds", 0.0)
+    return big, res, {"seconds": res.seconds, "wall": wall,
+                      "launches": dict(ops.LAUNCHES), "fleet_calls": split,
+                      "fit_fleet_share": fit_fleet / res.seconds["fit"]}
+
+
+def device_line():
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def fleet_split(runs=3):
+    """Phase 5 ``runs`` times on whatever ``repro_torch`` is importable, one
+    JSON line each: with an earlier commit's ``src`` first on ``sys.path``
+    it measures that commit's engine, e.g. ``python3 -c "import sys;
+    sys.path.insert(0, 'build/parent/src'); import chip_smoke;
+    chip_smoke.fleet_split()"`` from a ``git archive`` of the parent
+    unpacked under ``build/parent``."""
+    import repro_torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.wastage import ops
+    smi = device_line()
+    build.build(ops.SOURCE)  # run 0 still pays the process's first calls
+    for i in range(runs):
+        _, _, rec = fleet_scale()
+        rec.update(run=i, package=os.path.dirname(repro_torch.__file__),
+                   device=smi)
+        log(json.dumps(rec))
+
+
+def engine_tables(ops):
+    """Records ``(table, machine_memory, dt, max_attempts)`` of every
+    ``fleet_engine`` call (``core.fleet`` looks the wrapper up in the module
+    at each call); the tables keep their tensors alive for phase 6."""
+    return ShapeRecorder(ops, "fleet_engine", lambda *args: args)
+
+
+def _fleet_traces(rng, n, max_len=300):
+    """The engine tests' traces: a noisy step of random height and time."""
+    mems = []
+    for _ in range(n):
+        L = int(rng.integers(1, max_len))
+        m = np.full(L, rng.uniform(0.5, 4.0))
+        m[int(rng.integers(0, L)):] += rng.uniform(0.0, 6.0)
+        mems.append(np.abs(m + rng.normal(0, 0.05, L)))
+    return mems
+
+
+def _fleet_plans(rng, mems, K=4, nonmono=False):
+    """Packed plans over ``mems``: sorted starts from 0, sentinel starts
+    past each lane's segment count (its last peak replicated); peaks
+    sorted unless ``nonmono`` (k-Segments plans step down)."""
+    B = len(mems)
+    starts = np.sort(rng.uniform(0, 1, (B, K)), axis=1) \
+        * np.asarray([max(len(m), 1) for m in mems])[:, None]
+    starts[:, 0] = 0.0
+    peaks = rng.uniform(0.3, 1.2, (B, K)) \
+        * np.asarray([m.max(initial=1.0) for m in mems])[:, None]
+    if not nonmono:
+        peaks = np.sort(peaks, axis=1)
+    nseg = rng.integers(1, K + 1, B).astype(np.int32)
+    real = np.arange(K)[None, :] < nseg[:, None]
+    last = np.take_along_axis(peaks, (nseg - 1)[:, None], axis=1)
+    return (np.where(real, starts, 1e30).astype(np.float32),
+            np.where(real, peaks, last).astype(np.float32), nseg)
+
+
+def _edge_case(dt, n=24):
+    """Two-slot plans whose second start lies on the grid ``i * dt`` or one
+    float32 ulp either side of it, over traces that step up right there:
+    the lane fits or is killed at that sample depending on the exact
+    bound."""
+    f32 = np.float32
+    mems, starts = [], []
+    for i in range(n):
+        n0 = 5 + 7 * i
+        mems.append(np.concatenate([np.full(n0, 1.0), np.full(40, 3.0)]))
+        s = f32(n0) * f32(dt)
+        s = (s, np.nextafter(s, f32(0)), np.nextafter(s, f32(np.inf)))[i % 3]
+        starts.append([0.0, s])
+    starts = np.asarray(starts, np.float32)
+    peaks = np.tile(np.float32([2.0, 4.0]), (n, 1))
+    return mems, (starts, peaks, np.full(n, 2, np.int32))
+
+
+def engine_sweep():
+    """The engine tests' sweep: ``(name, jobs, traces, dt, machine_memory,
+    max_attempts)`` over every retry kind, a per-lane bump with NaN
+    entries, unsatisfiable lanes, max_attempts exhaustion, K = 1 and 32,
+    zero-length lanes, ulp-edge starts at three dt and many jobs x
+    buckets."""
+    from repro_torch.core import RetrySpec
+    rng = np.random.default_rng(0)
+    kinds = ("ksplus", "kseg-selective", "kseg-partial", "double",
+             "max-machine", "none")
+    cases = []
+    for kind in kinds:
+        mems = _fleet_traces(rng, 40)
+        jobs = [(_fleet_plans(rng, mems, nonmono=kind.startswith("kseg")),
+                 RetrySpec(kind))]
+        cases.append((f"kind={kind}", jobs, mems, 1.0, 12.0, 25))
+    mems = _fleet_traces(rng, 40)
+    bump = rng.uniform(0.05, 0.6, 40)
+    bump[::5] = np.nan
+    cases.append(("per-lane bump", [(_fleet_plans(rng, mems),
+                                     RetrySpec("ksplus", bump=0.2), bump)],
+                  mems, 1.0, 16.0, 25))
+    mems = _fleet_traces(rng, 40)
+    mems[0], mems[1] = np.full(20, 50.0), np.full(7, 30.0)
+    cases.append(("unsatisfiable", [(_fleet_plans(rng, mems),
+                                     RetrySpec("double"))],
+                  mems, 1.0, 16.0, 6))
+    mems = [np.full(8, 10.0)] * 3
+    cases.append(("max_attempts", [((np.zeros((3, 1), np.float32),
+                                     np.full((3, 1), 2.0, np.float32),
+                                     np.ones(3, np.int32)),
+                                    RetrySpec("none"))], mems, 1.0, 16.0, 5))
+    for K, kind in ((1, "ksplus"), (32, "ksplus"), (32, "kseg-partial")):
+        mems = _fleet_traces(rng, 48, max_len=700)
+        cases.append((f"K={K} {kind}", [(_fleet_plans(rng, mems, K=K),
+                                         RetrySpec(kind))],
+                      mems, 1.0, 12.0, 25))
+    mems = _fleet_traces(rng, 30)
+    for i in (0, 7, 19):
+        mems[i] = np.zeros(0)
+    cases.append(("zero-length lanes", [(_fleet_plans(rng, mems),
+                                         RetrySpec("ksplus"))],
+                  mems, 1.0, 12.0, 25))
+    for dt in (0.5, 1.0, 2.5):
+        mems, plans = _edge_case(dt)
+        cases.append((f"ulp-edge dt={dt}", [(plans, RetrySpec("ksplus")),
+                                            (plans, RetrySpec("double"))],
+                      mems, dt, 16.0, 25))
+    mems = _fleet_traces(rng, 60)
+    jobs = [(_fleet_plans(rng, mems, K=K), RetrySpec(kind))
+            for K, kind in ((4, "ksplus"), (1, "double"), (8, "ksplus"),
+                            (4, "kseg-partial"))]
+    cases.append(("many jobs and buckets", jobs, mems, 0.5, 9.0, 25))
+    return cases
+
+
+def engine_sweep_tables():
+    """The sweep's group tables on the card, as ``simulate_fleet_many``
+    builds them."""
+    from repro_torch.core.fleet import _engine_table, bucket_traces
+    return [(name, _engine_table(jobs, bucket_traces(mems, device="cuda"))[0],
+             mm, dt, max_attempts)
+            for name, jobs, mems, dt, mm, max_attempts in engine_sweep()]
+
+
+def check_engine(calls, err):
+    """``fleet_engine`` against the plain engine on the same CUDA table:
+    attempts and successes exact, wastage within rtol 1e-4 (the reference
+    test_fleet's tolerance: the retried lanes' trace sums are reduced in
+    another order)."""
+    from repro_torch.kernels.wastage import ops
+    from repro_torch.kernels.wastage.ref import plain_engine
+    lanes = 0
+    for name, table, mm, dt, max_attempts in calls:
+        got = ops.fleet_engine(table, mm, dt, max_attempts).cpu().numpy()
+        want = plain_engine(table, mm, dt, max_attempts).numpy()
+        for row, what in ((1, "attempts"), (2, "successes")):
+            bad = np.nonzero(got[row] != want[row])[0]
+            if bad.size:
+                raise AssertionError(
+                    f"fleet_engine {what} differ on {name} at lanes "
+                    f"{bad[:8].tolist()}: {got[row][bad[:8]].tolist()} vs "
+                    f"{want[row][bad[:8]].tolist()}")
+        gw, ww = got[0].view(np.float32), want[0].view(np.float32)
+        np.testing.assert_allclose(gw, ww, rtol=ENGINE_RTOL,
+                                   err_msg=f"fleet_engine wastage on {name}")
+        err["fleet_engine"] = max(err["fleet_engine"], float(
+            np.abs(gw.astype(np.float64) - ww).max(initial=0.0)))
+        lanes += table.n_lanes
+    return lanes
+
+
+def describe(table):
+    """``n_lanes, [(B, K, T) per group]`` of a group table."""
+    return table.n_lanes, [(g.B, g.K, int(g.mems.shape[1]))
+                           for g in table.groups]
 
 
 def check_kernels(cases, err):
@@ -243,11 +475,13 @@ def time_ms(fn, reps=25, warmup=3):
     return float(np.median(times))
 
 
-def probe_groups(res, wf, seed, train_frac):
-    """The attempt-1 probe groups of the ks+ job, as the engine builds
-    them: the test split bucketed on the card, plans sliced per bucket."""
-    from repro_torch.core.fleet import (PAD_START, bucket_traces,
-                                        concat_packed, packed_predict)
+def probe_table(res, wf, seed, train_frac):
+    """The attempt-1 probe of the ks+ job as one group table: the test
+    split bucketed on the card, the plans sliced per bucket, the longest
+    bucket first."""
+    from repro_torch.core.fleet import (bucket_traces, concat_packed,
+                                        packed_predict)
+    from repro_torch.kernels.wastage import ops
     _, test = wf.split(seed, train_frac, 1.0)
     fams = [f for f in wf.families if test[f]]
     flat = [e for f in fams for e in test[f]]
@@ -255,48 +489,123 @@ def probe_groups(res, wf, seed, train_frac):
     starts, peaks, _ = concat_packed([
         packed_predict(res.fitted[f]["ks+"], [e.input_gb for e in test[f]])
         for f in fams])
-    groups = []
-    for b in traces.buckets:
-        Bp = b.dmems.shape[0]
-        bs = np.full((Bp, starts.shape[1]), PAD_START, np.float32)
-        bp = np.ones((Bp, peaks.shape[1]), np.float32)
-        bs[:len(b.idx)], bp[:len(b.idx)] = starts[b.idx], peaks[b.idx]
-        s, p, _, _ = to_cuda(bs, bp, b.mems[:1], b.lengths[:1])
-        groups.append((s, p, b.dmems, b.dlengths))
-    return groups
+    return ops.GroupTable([ops.Group(starts[b.idx], peaks[b.idx], b.dmems,
+                                     b.dlengths)
+                           for b in reversed(traces.buckets)], "cuda")
 
 
-def kernel_timings(groups, launches):
+def check_grouped(table, dt, err):
+    """The grouped probes against the plain versions group by group."""
     from repro_torch.kernels.wastage import ops, ref
+    viol, ws, wk = ops.oom_probe_groups(table, dt)
+    we = ops.wastage_eval_groups(table, dt)
+    for g, lo in zip(table.groups, table.lane0[:-1]):
+        hi = lo + g.B
+        vr, wsr, wkr = ref.oom_probe(g.starts, g.peaks, g.mems[:g.B],
+                                     g.lengths[:g.B], dt)
+        wer = ref.wastage_eval(g.starts, g.peaks, g.mems[:g.B],
+                               g.lengths[:g.B], dt)
+        if not torch.equal(viol[lo:hi], vr):
+            raise AssertionError(f"grouped oom_probe viol differs at group "
+                                 f"{(g.B, g.K, int(g.mems.shape[1]))}")
+        for op, a, b in (("oom_probe", ws[lo:hi], wsr),
+                         ("oom_probe", wk[lo:hi], wkr),
+                         ("wastage_eval", we[lo:hi], wer)):
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL,
+                                       msg=f"grouped {op}")
+            err[op] = max(err[op], float((a - b).abs().max()))
+
+
+def table_bytes(table, out_bytes, engine=False):
+    """Bytes the function of a launch over ``table`` must move, fixed by
+    the shapes: each row's valid samples and length once (the jobs of an
+    engine call share their buckets, so a bucket counts once), each lane's
+    plan once (for the engine also its segment count and bump), and
+    ``out_bytes`` of outputs a lane once."""
+    rows, nbytes = {}, 0
+    for g in table.groups:
+        rows[(g.mems.data_ptr(), g.B)] = (int(g.lengths[:g.B].sum()), g.B)
+        per_lane = 2 * g.K * 4 + out_bytes
+        if engine:
+            per_lane += 4 + (4 if g.bump_lanes is not None else 0)
+        nbytes += g.B * per_lane
+    valid = sum(v for v, _ in rows.values())
+    lanes = sum(b for _, b in rows.values())
+    nbytes += valid * 4 + lanes * 4
+    return nbytes, valid
+
+
+def kernel_timings(table, engine_call, launches, err):
+    """The wastage kernels at phase 5's shapes, one launch each: both
+    probes over the ks+ job's attempt-1 groups, the engine over the
+    replay's group table; each beside its plain version and its bound."""
+    from repro_torch.kernels.wastage import ops, ref
+
+    def plain_probe(fn):
+        return lambda: [fn(g.starts, g.peaks, g.mems[:g.B], g.lengths[:g.B],
+                           1.0) for g in table.groups]
+    shapes = describe(table)[1]
     out = []
-    for name, out_words in (("oom_probe", 3), ("wastage_eval", 1)):
-        kern = getattr(ops, name)
-        plain = getattr(ref, name)
-        ms, plain_ms = [], []
-        nbytes = nops = 0
-        for s, p, m, n in groups:
-            ms.append(time_ms(lambda: kern(s, p, m, n, dt=1.0)))
-            plain_ms.append(time_ms(lambda: plain(s, p, m, n, 1.0)))
-            B, K = s.shape
-            valid = int(n.sum())  # the kernel reads valid samples only
-            nbytes += valid * 4 + B * (2 * K + 1) * 4 + B * out_words * 4
-            # per valid sample: K interval tests (2 compares, 1 and, 1 add)
-            # plus the grid multiply, max, subtract and accumulate
-            nops += valid * (4 * K + 4) + (valid if name == "oom_probe" else 0)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = nops / F32_OPS_PER_S * 1e3
-        out.append({
-            "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
-            "ms": sum(ms), "plain_ms": sum(plain_ms),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "bytes": nbytes, "ops": nops,
-            "timed": "attempt-1 probe of the ks+ job over the fleet-scale "
-                     "test split: one launch per length bucket, summed",
-            "groups": [list(g[2].shape) for g in groups],
-            "group_ms": ms, "group_plain_ms": plain_ms})
+    # outputs a lane: viol, w_succ, w_kill; w_succ
+    for name, out_bytes, kern, plain in (
+            ("oom_probe", 12, ops.oom_probe_groups, ref.oom_probe),
+            ("wastage_eval", 4, ops.wastage_eval_groups, ref.wastage_eval)):
+        nbytes, valid = table_bytes(table, out_bytes)
+        # per valid sample: the slot walk's compare, max, subtract, add
+        # and the violation compare; O(K) per lane besides
+        out.append(_entry(
+            name, launches, err, time_ms(lambda: kern(table, 1.0)),
+            time_ms(plain_probe(plain)), None, nbytes, valid * 5,
+            "attempt-1 probe of the ks+ job over the fleet-scale test split:"
+            " one launch over its length buckets", F32_OPS_PER_S,
+            groups=shapes))
+    etable, mm, dt, max_attempts = engine_call
+    # outputs a lane: wastage (float32), attempts (int32), succeeded (bool)
+    nbytes, valid = table_bytes(etable, 4 + 4 + 1, engine=True)
+    buckets = len({g.mems.data_ptr() for g in etable.groups})
+    jobs = len(etable.groups) // buckets
+    # per valid sample of each job's lanes at least one compare
+    out.append(_entry(
+        "fleet_engine", launches, err,
+        time_ms(lambda: ops.fleet_engine(etable, mm, dt, max_attempts)),
+        time_ms(lambda: ref.plain_engine(etable, mm, dt, max_attempts)),
+        None,
+        nbytes, valid * jobs,
+        "the sarek(2000) replay's fleet call: every attempt of "
+        f"{etable.n_lanes} lanes ({jobs} jobs x {buckets} buckets) in one "
+        "launch; the plain engine's time includes its two host reads",
+        F32_OPS_PER_S, groups=describe(etable)[1]))
     return out
+
+
+def wastage_timings(res, big, recorded, launches, err):
+    """Phase 6's kernel times: the probes over phase 5's attempt-1 groups
+    of the ks+ job (checked first), the engine over the replay's table,
+    the largest of the ``recorded`` engine calls."""
+    probes = probe_table(res, big, 0, 0.5)
+    check_grouped(probes, 1.0, err)
+    replay = max(recorded, key=lambda c: c[0].n_lanes)
+    return kernel_timings(probes, replay, launches, err)
+
+
+def kernel_bench():
+    """Phase 5 once, then phase 6's checks and kernel times
+    (:func:`check_engine`, :func:`wastage_timings`) on whatever
+    ``repro_torch`` is importable; one JSON line.  With an earlier tree's
+    ``src`` first on ``sys.path`` (see :func:`fleet_split`) it times that
+    tree's kernels in the same call."""
+    import repro_torch
+    from repro_torch.kernels.wastage import ops
+    tables = engine_tables(ops)
+    big, res, rec = fleet_scale(recorders=(tables,))
+    err = dict.fromkeys(REPLACES, 0.0)
+    check_engine([("main path", *c) for c in tables.seen], err)
+    kernels = wastage_timings(res, big, tables.seen, rec["launches"], err)
+    log(json.dumps({
+        "package": os.path.dirname(repro_torch.__file__),
+        "device": device_line(), "phase5": rec,
+        "kernels": [{k: e[k] for k in ("name", "ms", "plain_ms", "bound_ms",
+                                       "max_abs_err")} for e in kernels]}))
 
 
 # ------------------------------------------------------------------ phase 4
@@ -427,8 +736,10 @@ def _short(mangled):
     return name
 
 
-def kernel_report(source, path):
-    """Per bf16 kernel of ``source``: registers, spill bytes and any
+def kernel_report(source, path, keep=lambda name: "bf16" in name
+                  or "ssd3" in name):
+    """Per kernel of ``source`` whose mangled name ``keep`` accepts (by
+    default the bf16 LM kernels): registers, spill bytes and any
     performance advisory (wgmma serialisation) from the build's ``ptxas``
     output, ``HGMMA`` instructions from ``cuobjdump -sass`` (left out where
     the toolkit has no ``cuobjdump``)."""
@@ -462,8 +773,7 @@ def kernel_report(source, path):
             name = block.split()[0]
             if name in report:
                 report[name]["HGMMA"] = block.count("HGMMA")
-    return {_short(k): v for k, v in report.items()
-            if "bf16" in k or "ssd3" in k}
+    return {_short(k): v for k, v in report.items() if keep(k)}
 
 
 # ------------------------------------------------------------- phase 9
@@ -668,16 +978,33 @@ def lm_kernel_timings(launches, err):
     return out
 
 
-def _entry(name, launches, err, ms, plain_ms, lib_ms, nbytes, nops, timed):
+def _entry(name, launches, err, ms, plain_ms, lib_ms, nbytes, nops, timed,
+           ops_per_s=BF16_OPS_PER_S, **extra):
+    """One kernel's record of the ``{"kernels": ...}`` line: its bound is
+    the larger of its bytes at the HBM rate and its operations at
+    ``ops_per_s``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / BF16_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms, "bytes": nbytes, "ops": nops,
-            "timed": timed}
+            "timed": timed, **extra}
+
+
+def check_launches(launches, calls, what):
+    """The main path's wastage launches: exactly one ``fleet_engine`` per
+    fleet call on the card, no per-attempt probe."""
+    n = sum(c["calls"] for c in calls.values()) if isinstance(calls, dict) \
+        else len(calls.calls)
+    if launches["fleet_engine"] != n or n <= 0:
+        raise AssertionError(f"{what}: {launches['fleet_engine']} fleet_engine"
+                             f" launches for {n} fleet calls on the card")
+    if launches["oom_probe"] or launches["wastage_eval"]:
+        raise AssertionError(f"{what}: the main path launched a probe kernel "
+                             f"{launches}")
 
 
 def main() -> int:
@@ -698,10 +1025,7 @@ def main() -> int:
     from repro_torch.traces import eager, sarek
 
     # 1. device line
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = device_line()
     kind = torch.cuda.get_device_name(0)
     log(smi)
     log(f"phase 1: torch {torch.__version__} cuda {torch.version.cuda} "
@@ -712,43 +1036,47 @@ def main() -> int:
     built = build.build_all([ops.SOURCE, sops.SOURCE, fops.SOURCE])
     build_wall = time.perf_counter() - t0
     path, secs = built["wastage"]
-    log(f"phase 2: built {os.path.relpath(path, ROOT)} in {secs:.2f} s")
+    log(f"phase 2: built {os.path.relpath(path, ROOT)} in {secs:.2f} s; "
+        f"wastage_groups<mode> (probe 0, eval 1, engine 2) registers and "
+        f"[spill store, spill load] bytes: " + json.dumps(kernel_report(
+            ops.SOURCE, path, keep=lambda name: "wastage_groups" in name)))
 
     # 3. kernel parity on the tests' sweeps
     err = dict.fromkeys(REPLACES, 0.0)
     cases = parity_cases()
     check_kernels(cases, err)
-    log(f"phase 3: kernel == plain on {len(cases)} cases, max abs err {err}")
+    for dt in sorted({c[1][4] for c in cases}):
+        check_grouped(ops.GroupTable(
+            [ops.Group(*c[1][:4]) for c in cases if c[1][4] == dt], "cuda"),
+            dt, err)
+    sweep = engine_sweep_tables()
+    lanes = check_engine(sweep, err)
+    log(f"phase 3: kernel == plain on {len(cases)} cases (one at a time and "
+        f"grouped by dt) and fleet_engine == plain engine on {len(sweep)} "
+        f"sweep tables ({lanes} lanes), max abs err {err}")
+    del sweep
 
     # 4. main path at paper size, card vs the plain path on the CPU
-    kw = dict(seed=0, train_frac=0.5, k=4, machine_memory=128.0)
-    shapes = probe_shapes(ops)
+    tables = engine_tables(ops)
     ops.reset_launches()
-    with shapes:
-        card = {wf.name: evaluate_workflow(wf, device="cuda", **kw)
+    with tables, FleetCalls() as calls:
+        card = {wf.name: evaluate_workflow(wf, device="cuda", **KW)
                 for wf in (eager(), sarek())}
     launches = dict(ops.LAUNCHES)
-    if launches["oom_probe"] <= 0:
-        raise AssertionError("main path launched no oom_probe kernel")
+    check_launches(launches, calls, "phase 4")
     for name, res in card.items():
         log(f"phase 4: {name} on the card, stage seconds {res.seconds}")
         cpu = evaluate_workflow(
-            eager() if name == "eager" else sarek(), device="cpu", **kw)
+            eager() if name == "eager" else sarek(), device="cpu", **KW)
         compare_runs(res, cpu, name)
         ks = {f: m["ks+auto"].chosen_k for f, m in res.fitted.items()}
         log(f"phase 4: {name} card == cpu; chosen k {ks}")
-    log(f"phase 4: main-path launches {launches}")
+    log(f"phase 4: main-path launches {launches} for {len(calls.calls)} "
+        f"fleet calls {calls.split()}")
 
     # 5. fleet scale on the card
-    big = sarek(instances_per_family=2000)
-    ops.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with shapes:
-        res = evaluate_workflow(big, device="cuda", **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    big_launches = dict(ops.LAUNCHES)
+    big, res, rec = fleet_scale(recorders=(tables,))
+    check_launches(rec["launches"], rec["fleet_calls"], "phase 5")
     n_test = sum(len(v) for v in big.split(0, 0.5, 1.0)[1].values())
     for m, r in res.methods.items():
         if not (math.isfinite(r.total_gbs) and r.total_gbs > 0):
@@ -757,22 +1085,25 @@ def main() -> int:
                if not m.startswith("ks+"))
     log(f"phase 5: sarek(2000) {n_test} test executions x "
         f"{len(res.methods)} methods = {n_test * len(res.methods)} lanes; "
-        f"stage seconds {res.seconds}; wall {wall:.3f} s; launches "
-        f"{big_launches}; wastage reduction vs best baseline: ks+ "
+        f"wastage reduction vs best baseline: ks+ "
         f"{(base - res.methods['ks+'].total_gbs) / base:.4f}, ks+auto "
-        f"{(base - res.methods['ks+auto'].total_gbs) / base:.4f}")
+        f"{(base - res.methods['ks+auto'].total_gbs) / base:.4f}; "
+        + json.dumps(rec))
 
-    # 6. kernel parity at every shape the main path probed
-    check_kernels(main_path_cases(shapes.seen), err)
-    widths = sorted({K for _, K, _, _ in shapes.seen})
-    log(f"phase 6: kernel == plain at all {len(shapes.seen)} (B, K, T, dt) "
-        f"the main path probed (K in {widths}), max abs err {err}")
+    # 6. fleet_engine parity at every group table the main path launched
+    recorded = sorted(tables.seen, key=lambda c: -c[0].n_lanes)
+    lanes = check_engine([(f"main path {describe(t)[1]}", t, mm, dt, n)
+                          for t, mm, dt, n in recorded], err)
+    log(f"phase 6: fleet_engine == plain engine at all {len(recorded)} group "
+        f"tables phases 4 and 5 launched ({lanes} lanes; largest "
+        f"{describe(recorded[0][0])}), max abs err {err['fleet_engine']}")
 
-    # kernel times at this run's attempt-1 probe groups (ks+ plans)
-    groups = probe_groups(res, big, 0, 0.5)
-    kernels = kernel_timings(groups, launches)
+    kernels = wastage_timings(res, big, recorded, launches, err)
     for k in kernels:
-        k["max_abs_err"] = err[k["name"]]
+        log(f"phase 6: {k['name']} {k['ms']:.4f} ms (plain "
+            f"{k['plain_ms']:.4f}, bound {k['bound_ms']:.5f} by "
+            f"{k['bound_by']}) over {k['groups']}")
+    del tables, recorded
 
     # 7. the LM kernels, built beside the wastage kernels in phase 2
     log("phase 7: built " + ", ".join(
@@ -859,7 +1190,7 @@ def main() -> int:
         f"{err['flash_attention']:.3g}")
     del flash, ssd
     kernels += lm_kernel_timings(lm_launches, err)
-    for k in kernels[2:]:
+    for k in kernels[3:]:
         log(f"phase 11: {k['name']} {k['ms']:.4f} ms (plain "
             f"{k['plain_ms']:.4f}, library {k['library_ms']}, bound "
             f"{k['bound_ms']:.4f} by {k['bound_by']})")

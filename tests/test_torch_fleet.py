@@ -29,7 +29,7 @@ from repro_torch.core import (
     ksplus_retry,
     simulate_execution,
 )
-from repro_torch.kernels.wastage import ops
+from repro_torch.kernels.wastage import ops, ref
 from repro_torch.traces import eager
 
 CPU = "cpu"
@@ -141,7 +141,7 @@ class TestSegBounds:
         s = np.concatenate([s, np.float32([0.0, 1e30])]).astype(np.float32)
         # slot 0 is always active from t = 0; the edge starts go in slot 1
         starts = np.stack([np.zeros_like(s), s], axis=1)
-        got = f_pt._seg_bounds(torch.from_numpy(starts.copy()), dt).numpy()
+        got = ref._seg_bounds(torch.from_numpy(starts.copy()), dt).numpy()
         want = np.asarray(f_ref._seg_bounds(starts, dt))
         np.testing.assert_array_equal(got, want)
         # and against the per-sample truth: first i with f32(i)*dt >= s
@@ -261,7 +261,8 @@ class TestBatchHandling:
         batch = f_pt.bucket_traces(mems, device=CPU)
         ops.reset_launches()
         f_pt.simulate_fleet(plans, "ksplus", batch, machine_memory=12.0)
-        assert ops.LAUNCHES == {"oom_probe": 0, "wastage_eval": 0}
+        assert ops.LAUNCHES == {"oom_probe": 0, "wastage_eval": 0,
+                                "fleet_engine": 0}
         with pytest.raises(ValueError):
             f_pt.simulate_fleet(plans, "ksplus", batch, device="meta")
         with pytest.raises(ValueError):
