@@ -61,7 +61,26 @@ Phases (any failure exits non-zero; nothing is caught):
 11. LM kernel parity at every shape phase 9 launched, on seeded inputs;
    then each LM kernel is timed at the 4 x 2048 shapes beside its plain
    version, its bound (max of bf16 FLOPs at 989 TFLOP/s and bytes at
-   3.35 TB/s) and, for attention, ``scaled_dot_product_attention``.
+   3.35 TB/s) and, for attention, ``scaled_dot_product_attention``;
+12. cluster replay at the reference benchmark's full size: the
+   ``workload_replay`` scenario (layered random DAG, 4 task families)
+   synthesized on the card at 8192 tasks (seed 1), timed, and synthesized
+   again to check it is bitwise the same; then replayed by
+   ``ClusterSim(engine="fused")`` on four nodes (48, 64, 32, 96 GB) with
+   ``RetrySpec("ksplus")``: release order against the DAG, no
+   unschedulable job, exactly one ``oom_probe`` launch per dt group (the
+   attempt-1 probe) and no other wastage launch; wall seconds, drains,
+   drain iterations and host reads, retries.  The same scenario at 400
+   tasks (seed 0) through ``fused`` and ``packed`` on the card and
+   ``legacy``: placements, retries and unschedulable identical, and the
+   fused engine equal to itself on the CPU over the carried trace.  The
+   robustness suite (3 scenarios x 2 arrivals x 3 fault kinds, 96 tasks)
+   through ``run_suite`` on the card, each case replayed by ``fused`` and
+   ``packed`` with equal placements, evictions, starved, doomed and
+   retries.  ``evaluate_workflow("heavy_tail")`` on the card against the
+   same trace carried to the CPU (retries and failures exact, GB·s rtol
+   1e-4).  Last, ``oom_probe`` at the replay's probe table against its
+   plain version, and timed there.
 
 The card's ``nvidia-smi`` line comes two lines before the end, then
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -1007,6 +1026,251 @@ def check_launches(launches, calls, what):
                              f"{launches}")
 
 
+# ------------------------------------------------------------- phase 12
+CLUSTER_NODES = ((0, 48.0), (1, 64.0), (2, 32.0), (3, 96.0))
+REPLAY_TASKS = 8192     # the reference benchmark's full size
+DIFF_TASKS = 400        # the engines' differential replay
+SUITE_GRID = (("burst_arrival", "deep_chain", "wide_fanout"),
+              ("none", "poisson"), ("storm", "churn", "rack"))
+RESULT_FIELDS = ("placements", "retries", "unschedulable", "evictions",
+                 "starved", "doomed", "finished", "makespan")
+
+
+def _same_result(a, b, what, fields=RESULT_FIELDS):
+    for f in fields:
+        if getattr(a, f) != getattr(b, f):
+            raise AssertionError(f"{what}: {f} differs")
+    np.testing.assert_allclose(a.total_wastage_gbs, b.total_wastage_gbs,
+                               rtol=1e-6, err_msg=what)
+
+
+def cluster_replay(err, device="cuda"):
+    """Phase 12 (see the module docstring) on ``device``; returns its
+    record and the replay's probe tables ``{(table, dt), ...}`` for the
+    kernel line.  (``device="cpu"`` with smaller sizes rehearses it.)"""
+    from repro_torch.core import RetrySpec, ksplus_retry
+    from repro_torch.kernels.wastage import ops
+    from repro_torch.sched import ClusterSim, Node, evaluate_workflow
+    from repro_torch.workloads import (assert_release_order,
+                                       load_workflow_trace, make_suite,
+                                       run_suite, scenarios, trace_state)
+    from repro_torch.workloads import suite as suite_mod
+
+    def nodes(spec=CLUSTER_NODES):
+        return [Node(n, c) for n, c in spec]
+
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    rec = {}
+    times = []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        wf = scenarios.get("workload_replay", n_tasks=REPLAY_TASKS, seed=1,
+                           device=dev)
+        sync()
+        times.append(time.perf_counter() - t0)
+        if len(times) == 1:
+            first = wf
+    for a, b in zip(first.batch.buckets, wf.batch.buckets):
+        if not (np.array_equal(a.idx, b.idx) and torch.equal(a.dmems, b.dmems)
+                and torch.equal(a.dsummem, b.dsummem)):
+            raise AssertionError("workload_replay: same seed, other traces")
+    if not (np.array_equal(first.input_gb, wf.input_gb)
+            and np.array_equal(first.lengths, wf.lengths)):
+        raise AssertionError("workload_replay: same seed, other tasks")
+    del first
+    rec["synthesis_s"] = times
+    rec["buckets"] = [list(b.dmems.shape) for b in wf.batch.buckets]
+    rec["trace_bytes"] = sum(b.dmems.numel() * 4 + b.dlengths.numel() * 4
+                             + b.dsummem.numel() * 4
+                             for b in wf.batch.buckets)
+
+    jobs = wf.to_jobs(under_frac=0.1, seed=1)
+    dt_groups = len({job.dt for job in jobs})
+    sim = ClusterSim(nodes(), engine="fused", device=dev)
+    ops.reset_launches()
+    with ShapeRecorder(ops, "oom_probe_groups",
+                       lambda table, dt=1.0: (table, dt)) as probes:
+        sync()
+        t0 = time.perf_counter()
+        res = sim.run(jobs, RetrySpec("ksplus"))
+        sync()
+        wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    assert_release_order(jobs, res.placements)
+    if res.unschedulable != 0:
+        raise AssertionError(f"replay: {res.unschedulable} unschedulable")
+    # one launch per dt group on the card; a CPU table launches nothing
+    want = dt_groups if dev.type == "cuda" else 0
+    if launches != {"oom_probe": want, "wastage_eval": 0,
+                    "fleet_engine": 0} \
+            or sim.stats["probe_groups"] != dt_groups:
+        raise AssertionError(f"replay launched {launches} for {dt_groups} "
+                             f"dt groups")
+    rec["replay"] = {"tasks": len(jobs), "wall_s": wall,
+                     "placements": len(res.placements),
+                     "retries": res.retries, "makespan": res.makespan,
+                     "wastage_gbs": res.total_wastage_gbs,
+                     "utilization": res.avg_utilization,
+                     "dt_groups": dt_groups, "launches": launches,
+                     **sim.stats}
+    del wf, jobs
+
+    small = scenarios.get("workload_replay", n_tasks=DIFF_TASKS, seed=0,
+                          device=dev)
+    carried = load_workflow_trace(trace_state(small), device="cpu")
+    runs = {}
+    for name, engine, device, wf_, retry in (
+            ("fused", "fused", dev, small, RetrySpec("ksplus")),
+            ("packed", "packed", dev, small, RetrySpec("ksplus")),
+            ("legacy", "legacy", dev, small, ksplus_retry),
+            ("fused-cpu", "fused", "cpu", carried, RetrySpec("ksplus"))):
+        t0 = time.perf_counter()
+        runs[name] = ClusterSim(nodes(), engine=engine, device=device).run(
+            wf_.to_jobs(under_frac=0.2, seed=0), retry)
+        runs[name + "_s"] = time.perf_counter() - t0
+    for name in ("packed", "legacy", "fused-cpu"):
+        _same_result(runs["fused"], runs[name], f"{DIFF_TASKS} tasks, fused "
+                     f"vs {name}", ("placements", "retries", "unschedulable")
+                     if name == "legacy" else RESULT_FIELDS)
+    assert_release_order(small.to_jobs(seed=0), runs["fused"].placements)
+    rec["differential"] = {
+        "tasks": DIFF_TASKS, "retries": runs["fused"].retries,
+        "placements": len(runs["fused"].placements),
+        **{k: v for k, v in runs.items() if k.endswith("_s")}}
+
+    cases = make_suite(*SUITE_GRID)
+    t0 = time.perf_counter()
+    rows = run_suite(cases, n_tasks=96, device=dev)
+    suite_s = time.perf_counter() - t0
+    for case, row in zip(cases, rows):
+        got = {}
+        for engine in ("fused", "packed"):
+            fleet = suite_mod._default_nodes()
+            got[engine] = ClusterSim(fleet, engine=engine, device=dev).run(
+                suite_mod._case_jobs(case, 96, dev), RetrySpec("ksplus"),
+                faults=suite_mod._case_faults(case, fleet))
+        _same_result(got["fused"], got["packed"], case.name)
+        for f in ("retries", "evictions", "starved", "doomed",
+                  "unschedulable", "finished"):
+            if row[f] != getattr(got["fused"], f):
+                raise AssertionError(f"{case.name}: run_suite {f} differs")
+    rec["suite"] = {"cases": len(cases), "seconds": suite_s,
+                    "evictions": sum(r["evictions"] for r in rows),
+                    "retries": sum(r["retries"] for r in rows),
+                    "doomed": sum(r["doomed"] for r in rows),
+                    "starved": sum(r["starved"] for r in rows)}
+
+    t0 = time.perf_counter()
+    card = evaluate_workflow("heavy_tail", device=dev, **KW)
+    card_s = time.perf_counter() - t0
+    trace = scenarios.get("heavy_tail", seed=KW["seed"], device=dev)
+    cpu = evaluate_workflow(
+        load_workflow_trace(trace_state(trace), device="cpu"),
+        device="cpu", **KW)
+    compare_runs(card, cpu, "heavy_tail")
+    rec["heavy_tail"] = {"seconds": card.seconds, "wall_s": card_s}
+
+    for table, dt in probes.seen:
+        check_grouped(table, dt, err)
+    return rec, probes.seen
+
+
+def cluster_probe_entry(seen, launches, err):
+    """The kernel line's ``oom_probe`` record at the cluster replay's probe
+    table (the largest one): kernel and plain version timed, bound from its
+    bytes."""
+    from repro_torch.kernels.wastage import ops, ref
+    table, dt = max(seen, key=lambda c: c[0].n_lanes)
+    nbytes, valid = table_bytes(table, 12)
+    kern = time_ms(lambda: ops.oom_probe_groups(table, dt))
+    plain = time_ms(lambda: [ref.oom_probe(g.starts, g.peaks, g.mems[:g.B],
+                                           g.lengths[:g.B], dt)
+                             for g in table.groups])
+    return _entry("oom_probe", launches, err, kern, plain, None, nbytes,
+                  valid * 5, "the cluster replay's attempt-1 probe: "
+                  f"{table.n_lanes} jobs' plans over their traces, one "
+                  "launch per dt group", F32_OPS_PER_S,
+                  groups=describe(table)[1])
+
+
+def cluster_profile(tasks=REPLAY_TASKS, profiled=2048):
+    """Where phase 12's replay time goes, one JSON line: the fused replay
+    of ``workload_replay(tasks)`` under ``cProfile`` (the share of its wall
+    time inside ``AdmissionState.drain`` and the drain program), then a
+    ``workload_replay(profiled)`` replay under ``torch.profiler``: device
+    busy time (the union of its kernels' intervals), idle share, kernel
+    count.  Run as ``python3 -c "import chip_smoke;
+    chip_smoke.cluster_profile()"`` from the checkout."""
+    import cProfile
+    import pstats
+
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.core import RetrySpec
+    from repro_torch.kernels import build
+    from repro_torch.kernels.wastage import ops
+    from repro_torch.sched import ClusterSim, Node
+    from repro_torch.workloads import scenarios
+
+    def replay(n):
+        """A replay of ``n`` tasks to run once (``run`` updates its jobs),
+        prepared outside the measured window."""
+        wf = scenarios.get("workload_replay", n_tasks=n, seed=1,
+                           device="cuda")
+        sim = ClusterSim([Node(i, c) for i, c in CLUSTER_NODES])
+        jobs = wf.to_jobs(under_frac=0.1, seed=1)
+        torch.cuda.synchronize()
+
+        def go():
+            sim.run(jobs, RetrySpec("ksplus"))
+            torch.cuda.synchronize()
+            return dict(sim.stats)
+        return go
+
+    build.build(ops.SOURCE)
+    replay(256)()  # first calls
+    run = replay(tasks)
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    stats = run()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    cum = {f"{os.path.basename(k[0])}:{k[2]}": v[3] for k, v in
+           pstats.Stats(prof).stats.items()
+           if k[2] in ("drain", "_drain_fused", "_residual", "_operands",
+                       "_run_fused", "process_job_run")}
+    out = {"device": device_line(), "tasks": tasks, "cprofile_wall_s": wall,
+           "cumulative_s": cum, **stats}
+    run = replay(profiled)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        stats = run()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in p.events()
+                   if e.device_type.name == "CUDA")
+    busy, cur = 0.0, None
+    for a, b in spans:
+        if cur is None or a > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy = (busy + (0.0 if cur is None else cur[1] - cur[0])) / 1e6
+    out["profiled"] = {"tasks": profiled, "wall_s": wall,
+                       "device_busy_s": busy, "idle_share": 1 - busy / wall,
+                       "device_kernels": len(spans), **stats}
+    log(json.dumps(out))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1194,6 +1458,37 @@ def main() -> int:
         log(f"phase 11: {k['name']} {k['ms']:.4f} ms (plain "
             f"{k['plain_ms']:.4f}, library {k['library_ms']}, bound "
             f"{k['bound_ms']:.4f} by {k['bound_by']})")
+
+    # 12. the cluster replay at the reference benchmark's full size
+    t0 = time.perf_counter()
+    rec, seen = cluster_replay(err)
+    log(f"phase 12: workload_replay({REPLAY_TASKS}) synthesized on the card "
+        f"in {rec['synthesis_s'][0]:.3f} s (again, bitwise the same: "
+        f"{rec['synthesis_s'][1]:.3f} s); buckets {rec['buckets']}, "
+        f"{rec['trace_bytes']} bytes of traces")
+    r = rec["replay"]
+    log(f"phase 12: fused replay of {r['tasks']} tasks in {r['wall_s']:.3f} "
+        f"s: {r['drains']} drains, {r['drain_iterations']} drain iterations,"
+        f" {r['host_reads']} host reads, {r['retries']} retries, "
+        f"{r['launches']['oom_probe']} oom_probe launch(es) for "
+        f"{r['dt_groups']} dt group(s); release order holds, none "
+        f"unschedulable")
+    log(f"phase 12: {DIFF_TASKS} tasks fused == packed == legacy == fused on "
+        f"the CPU; run_suite {rec['suite']['cases']} cases fused == packed; "
+        f"heavy_tail card == cpu ({time.perf_counter() - t0:.1f} s) "
+        + json.dumps(rec))
+    # the kernel line's oom_probe: the cluster path, where it launches now;
+    # phase 6's split timing stays beside it
+    fleet_probe = kernels[0]
+    kernels[0] = cluster_probe_entry(
+        seen, {"oom_probe": r["launches"]["oom_probe"]}, err)
+    kernels[0]["fleet_launches"] = fleet_probe["launches"]
+    kernels[0]["sarek_split"] = {k: fleet_probe[k] for k in (
+        "ms", "plain_ms", "bound_ms", "bytes", "groups")}
+    k = kernels[0]
+    log(f"phase 12: oom_probe at the replay's table {k['ms']:.4f} ms (plain "
+        f"{k['plain_ms']:.4f}, bound {k['bound_ms']:.5f} by "
+        f"{k['bound_by']}) over {k['groups']}")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

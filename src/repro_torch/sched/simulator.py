@@ -25,9 +25,11 @@ time, mirroring the cluster engine's event-batched retries.  With
 ``refit="never"`` no model ever changes, so online replay reproduces the
 offline :class:`ExperimentResult` bitwise.
 
-Workflows come from :mod:`repro_torch.traces.generator`; scenario names and
-``WorkflowTrace`` inputs (the reference's ``repro.workloads``) are not
-carried over yet and raise :class:`NotImplementedError`.
+Workflows come from :mod:`repro_torch.traces.generator`, or from
+:mod:`repro_torch.workloads`: a scenario-catalog name (synthesized on the
+run's device with the cell's seed) or a
+:class:`~repro_torch.workloads.WorkflowTrace` (adapted through its
+``to_workflow``).
 
 The method zoo lives in :mod:`repro_torch.core.registry` — method *names*
 (including aliases) are accepted everywhere method lists are, and each
@@ -39,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Union
+from typing import TYPE_CHECKING, Dict, List, Optional, Union
 
 import numpy as np
 
@@ -58,6 +60,10 @@ from repro_torch.core import (
 from repro_torch.core.fleet import PAD_START, FleetResult
 from repro_torch.device import resolve_device
 from repro_torch.traces.generator import Workflow
+from repro_torch.workloads import scenarios
+
+if TYPE_CHECKING:
+    from repro_torch.workloads import WorkflowTrace
 
 __all__ = ["MethodResult", "ExperimentResult", "evaluate_workflow",
            "run_paper_experiment"]
@@ -145,17 +151,8 @@ def _aggregate_fleet(results, fleet, names, train, fam_idx):
         results[mname].failures = int((~fr.succeeded).sum())
 
 
-def _as_workflow(wf) -> Workflow:
-    if isinstance(wf, str) or hasattr(wf, "to_workflow"):
-        raise NotImplementedError(
-            "scenario names and WorkflowTrace inputs need the workloads "
-            "package, not ported yet (ROADMAP A7); pass a "
-            "repro_torch.traces.generator.Workflow")
-    return wf
-
-
 def evaluate_workflow(
-    wf: Workflow,
+    wf: Union[Workflow, str, "WorkflowTrace"],
     *,
     seed: int,
     train_frac: float,
@@ -171,10 +168,11 @@ def evaluate_workflow(
 ) -> ExperimentResult:
     """Fit + replay one (workflow, seed, train fraction) cell.
 
-    ``wf`` is a :class:`repro_torch.traces.generator.Workflow` (scenario
-    names and ``WorkflowTrace`` inputs raise ``NotImplementedError`` until
-    the workloads package is ported).  ``device`` is where fitting and the
-    fleet replay run: None means the card, and without CUDA that raises.
+    ``wf`` is a :class:`repro_torch.traces.generator.Workflow`, a scenario
+    name (synthesized on ``device`` with ``seed``) or a
+    :class:`~repro_torch.workloads.WorkflowTrace`.  ``device`` is where
+    synthesis, fitting and the fleet replay run: None means the card, and
+    without CUDA that raises.
 
     ``engine="fleet"`` (default) runs the replay on the batched engine —
     every method over the *whole* test split, sharing one trace batch;
@@ -188,8 +186,11 @@ def evaluate_workflow(
     with their fit-once models.  ``refit="never"`` reproduces the offline
     result bitwise.
     """
-    wf = _as_workflow(wf)
     dev = resolve_device(device)
+    if isinstance(wf, str):  # scenario-catalog name
+        wf = scenarios.get(wf, seed=seed, device=dev).to_workflow()
+    elif hasattr(wf, "to_workflow"):  # a workloads.WorkflowTrace
+        wf = wf.to_workflow()
     if engine not in ("fleet", "oracle"):
         raise ValueError(f"unknown engine: {engine!r}")
     if mode not in ("offline", "online"):
@@ -351,7 +352,7 @@ def evaluate_workflow(
 
 
 def run_paper_experiment(
-    wf: Workflow,
+    wf: Union[Workflow, str, "WorkflowTrace"],
     *,
     seeds=range(10),
     train_fracs=(0.25, 0.50, 0.75),
@@ -367,17 +368,29 @@ def run_paper_experiment(
 ):
     """Fig. 6 protocol: 10 seeds × {25, 50, 75}% training data, averaged.
 
-    ``wf`` is a :class:`repro_torch.traces.generator.Workflow`; ``device``
-    as in :func:`evaluate_workflow` (None means the card).
+    Like :func:`evaluate_workflow`, ``wf`` may be a scenario name (built
+    once per seed on ``device`` — the synthesis seed follows the cell
+    seed) or a :class:`~repro_torch.workloads.WorkflowTrace` (adapted
+    once, shared by every cell); the conversion is hoisted out of the
+    (seed, frac) grid.  ``device`` as in :func:`evaluate_workflow` (None
+    means the card).
     """
-    wf = _as_workflow(wf)
     device = resolve_device(device)
+    if isinstance(wf, str):  # one synthesis per seed, shared across fracs
+        per_seed = {s: scenarios.get(wf, seed=s, device=device).to_workflow()
+                    for s in seeds}
+        wf_for = per_seed.__getitem__
+    elif hasattr(wf, "to_workflow"):  # adapt a WorkflowTrace exactly once
+        adapted = wf.to_workflow()
+        wf_for = lambda s: adapted  # noqa: E731
+    else:
+        wf_for = lambda s: wf  # noqa: E731
     out: Dict[float, Dict[str, float]] = {}
     for frac in train_fracs:
         acc: Dict[str, List[float]] = {}
         for seed in seeds:
             res = evaluate_workflow(
-                wf, seed=seed, train_frac=frac, k=k,
+                wf_for(seed), seed=seed, train_frac=frac, k=k,
                 machine_memory=machine_memory, methods=methods, dt=dt,
                 engine=engine, mode=mode, refit=refit, round_size=round_size,
                 device=device,

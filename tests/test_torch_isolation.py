@@ -23,10 +23,28 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.wastage import ops
 from repro_torch.models import init_cache, init_params, load_jax_params
-from repro_torch.sched import evaluate_workflow, run_paper_experiment
+from repro_torch.sched import (
+    AdmissionState,
+    ClusterSim,
+    ElasticPlanner,
+    HBMFootprintModel,
+    Node,
+    evaluate_workflow,
+    run_paper_experiment,
+)
 from repro_torch.traces import eager
+from repro_torch.workloads import (
+    FamilyRecipe,
+    load_instance,
+    load_workflow_trace,
+    make_suite,
+    run_suite,
+    scenarios,
+    synthesize,
+)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+WFC = ROOT / "tests" / "data" / "mini_wfcommons.json"
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
@@ -62,6 +80,20 @@ ENTRY_POINTS = {
         smoke_config("mamba2-780m"), {}),
     "models.init_cache": lambda: init_cache(
         smoke_config("zamba2-2.7b"), 1, 8),
+    "workloads.synthesize": lambda: synthesize([FamilyRecipe("a")], 2),
+    "workloads.scenarios.get": lambda: scenarios.get("heavy_tail",
+                                                     n_tasks=8),
+    "workloads.load_workflow_trace": lambda: load_workflow_trace(
+        scenarios.get("heavy_tail", n_tasks=8, device="cpu")),
+    "workloads.load_instance": lambda: load_instance(WFC),
+    "workloads.run_suite": lambda: run_suite(
+        make_suite(("deep_chain",), ("none",), ("none",)), n_tasks=8),
+    "evaluate_workflow(scenario)": lambda: evaluate_workflow(
+        "heavy_tail", seed=0, train_frac=0.5, methods=["default"]),
+    "sched.ClusterSim": lambda: ClusterSim([Node(0, 8.0)]),
+    "sched.AdmissionState": lambda: AdmissionState([1.0], K=1, G=4),
+    "sched.ElasticPlanner": lambda: ElasticPlanner(backend="fused"),
+    "sched.HBMFootprintModel": lambda: HBMFootprintModel(),
 }
 
 

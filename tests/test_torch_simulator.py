@@ -5,16 +5,23 @@
 (``tests/test_fleet.py``, fleet vs oracle): retries and failures per method
 exact, total GB·s within rtol 1e-4, per-family GB·s within rtol 1e-4 /
 atol 1e-2.  Within the port, online replay with ``refit="never"`` must
-reproduce the offline result bitwise.
+reproduce the offline result bitwise.  Scenario names and
+``WorkflowTrace`` inputs meet the same contract: a reference scenario
+carried into the port, and a scenario the port synthesizes by name (the
+reference evaluates the port's trace itself: both take any object with
+``to_workflow``).
 """
 
 import numpy as np
 import pytest
 
 from repro.sched.simulator import evaluate_workflow as eval_ref
+from repro.sched.simulator import run_paper_experiment as paper_ref
 from repro.traces import eager as eager_ref
+from repro.workloads import scenarios as scen_ref
 from repro_torch.sched import evaluate_workflow, run_paper_experiment
 from repro_torch.traces import eager
+from repro_torch.workloads import load_workflow_trace, scenarios
 
 KW = dict(seed=0, train_frac=0.5, k=4, machine_memory=128.0)
 
@@ -81,5 +88,51 @@ def test_run_paper_experiment_averages_cells():
 
 
 def test_scenario_inputs_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A7"):
-        evaluate_workflow("heavy_tail", device="cpu", **KW)
+    """Scenario names and ``WorkflowTrace`` inputs are accepted now, on
+    both entry points: a name is its scenario synthesized on the run's
+    device with the cell's seed."""
+    kw = dict(KW, methods=["default"])
+    by_name = evaluate_workflow("heavy_tail", device="cpu", **kw)
+    wf = scenarios.get("heavy_tail", seed=0, device="cpu")
+    by_trace = evaluate_workflow(wf, device="cpu", **kw)
+    assert by_name.methods == by_trace.methods
+    out = run_paper_experiment("heavy_tail", seeds=[0], train_fracs=(0.5,),
+                               methods=["default"], device="cpu")
+    assert out[0.5] == {m: r.total_gbs for m, r in by_name.methods.items()}
+
+
+SCEN_METHODS = ["ks+", "default"]
+
+
+def test_scenario_name_matches_reference():
+    kw = dict(KW, methods=SCEN_METHODS)
+    got = evaluate_workflow("heavy_tail", device="cpu", **kw)
+    want = eval_ref(scenarios.get("heavy_tail", seed=0, device="cpu"), **kw)
+    _assert_contract(got, want)
+
+
+def test_carried_trace_matches_reference():
+    ref_wf = scen_ref.get("heavy_tail", n_tasks=160, seed=2)
+    kw = dict(KW, methods=SCEN_METHODS)
+    got = evaluate_workflow(load_workflow_trace(ref_wf, device="cpu"),
+                            device="cpu", **kw)
+    _assert_contract(got, eval_ref(ref_wf, **kw))
+
+
+def test_run_paper_experiment_on_scenarios_matches_reference():
+    kw = dict(seeds=[0, 1], train_fracs=(0.5,), methods=["ks+", "default"])
+    ref_wf = scen_ref.get("heavy_tail", n_tasks=96, seed=1)
+    got = run_paper_experiment(load_workflow_trace(ref_wf, device="cpu"),
+                               device="cpu", **kw)
+    want = paper_ref(ref_wf, **kw)
+    for m in kw["methods"]:
+        np.testing.assert_allclose(got[0.5][m], want[0.5][m], rtol=1e-4)
+    kw = dict(seeds=[3], train_fracs=(0.5,), methods=["default"])
+    got = run_paper_experiment("burst_arrival", device="cpu", **kw)
+    cells = [eval_ref(scenarios.get("burst_arrival", seed=s, device="cpu"),
+                      seed=s, train_frac=0.5, methods=kw["methods"])
+             for s in kw["seeds"]]
+    for m in kw["methods"]:
+        np.testing.assert_allclose(
+            got[0.5][m], np.mean([c.methods[m].total_gbs for c in cells]),
+            rtol=1e-4)
