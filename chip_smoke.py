@@ -80,7 +80,30 @@ Phases (any failure exits non-zero; nothing is caught):
    retries.  ``evaluate_workflow("heavy_tail")`` on the card against the
    same trace carried to the CPU (retries and failures exact, GB·s rtol
    1e-4).  Last, ``oom_probe`` at the replay's probe table against its
-   plain version, and timed there.
+   plain version, and timed there;
+13. the prediction service (``repro_torch.serve``) on the card:
+   (a) ``run_saturation()`` at its defaults (8 tenants, 2048 requests,
+   2000 req/s open-loop, seed 0): batched plans bitwise equal to
+   unbatched, no kernel build or load on the warm path, cache hits on
+   repeat traffic; req/s, mean batch, p50/p99, hit rate, and one
+   ``fleet_engine`` launch per ``fleet.engine`` dispatch; (b) a server
+   of 8 tenants sharing one ``ks+`` snapshot per family of
+   ``sarek(instances_per_family=2000)``, seeded on the family's 2000
+   executions at dt 1.0: ``evaluate`` for every (tenant, family) and
+   ``tune_offset`` for every family, cold and then warm under
+   ``dispatch_budget(compiles=0)``; exactly one ``fleet_engine`` launch
+   per evaluate dispatch and per tune group, ``serve.dev_sync`` once per
+   (tenant, family, snapshot) cold and never warm; the same on a CPU
+   server (``succeeded`` and ``mean_attempts`` exact, GB·s rtol 1e-4,
+   the same best offset); seconds per call cold and warm; (c) the
+   400-task ``workload_replay`` (seed 0, ``under_frac=0.2``) through the
+   fused engine untraced and traced: placements, retries, evictions and
+   wastage bitwise equal, one ``admission.drain`` dispatch per drain; the
+   trace goes to ``build/obs_trace.perfetto.json`` and its top spans are
+   printed; (d) ``serve_demo("qwen3-1.7b")`` on the card admits the same
+   batches as on the CPU.  Then ``fleet_engine`` against the plain engine
+   at every group table (b) launched, and timed at the one that moves the
+   most bytes (the ``fleet_engine`` record's ``serve`` entry).
 
 The card's ``nvidia-smi`` line comes two lines before the end, then
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -1271,6 +1294,292 @@ def cluster_profile(tasks=REPLAY_TASKS, profiled=2048):
     log(json.dumps(out))
 
 
+# ------------------------------------------------------------- phase 13
+SERVE_TENANTS = 8
+SERVE_INSTANCES = 2000  # sarek(instances_per_family=...): executions a family
+TRACED_TASKS = 400      # the traced cluster replay (phase 12's differential)
+OBS_TRACE = os.path.join(ROOT, "build", "obs_trace.perfetto.json")
+
+
+def _sarek_families(instances):
+    """``{family: (mems, dts, inputs)}`` of ``sarek(instances)`` at dt 1.0."""
+    from repro_torch.traces import sarek
+    data = sarek(instances_per_family=instances).generate(0, 1.0)
+    return {f: ([e.mem for e in ex], [e.dt for e in ex],
+                [e.input_gb for e in ex]) for f, ex in data.items()}
+
+
+def _timed(fn, dev):
+    """``(fn(), seconds)`` on the host clock, ending in a synchronise."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _spread(xs):
+    return {"n": len(xs), "mean_s": float(np.mean(xs)),
+            "min_s": float(np.min(xs)), "max_s": float(np.max(xs))}
+
+
+def serve_histories(families, tenants, device):
+    """Phase 13 (b) on ``device``: a server whose ``tenants`` share one
+    ``ks+`` snapshot per family, seeded on the family's executions; then
+    ``evaluate`` for every (tenant, family) and ``tune_offset`` for every
+    family (tenant 0's), cold and then warm under ``dispatch_budget(
+    compiles=0)`` with ``serve.dev_sync`` forbidden.  Returns the record
+    and the results ``{family: (evaluate, tune)}`` of tenant 0's warm
+    pass."""
+    from repro_torch.analysis.contracts import dispatch_budget
+    from repro_torch.serve import PredictionServer
+    dev = torch.device(device)
+    srv = PredictionServer(device=dev)
+    for t in range(tenants):
+        srv.add_tenant(f"tenant{t}")
+    _, seed_s = _timed(lambda: [srv.seed_family(f, "ks+", *data)
+                                for f, data in families.items()], dev)
+    rec = {"device": str(dev), "tenants": tenants,
+           "families": len(families), "seed_s": seed_s}
+    results = {}
+    for phase, budget in (("cold", {}), ("warm", {
+            "compiles": 0, "forbid": ("serve.dev_sync",)})):
+        ev_s, tune_s = [], []
+        with dispatch_budget(**budget) as b:
+            for t in range(tenants):
+                client = srv.client(f"tenant{t}")
+                for f in families:
+                    res, secs = _timed(lambda: client.evaluate(f), dev)
+                    ev_s.append(secs)
+                    if t == 0:
+                        results[f] = [res]
+            client = srv.client("tenant0")
+            for f in families:
+                res, secs = _timed(lambda: client.tune_offset(f), dev)
+                tune_s.append(secs)
+                results[f].append(res)
+        rec[phase] = {"evaluate": _spread(ev_s), "tune": _spread(tune_s),
+                      "compiles": b.compiles,
+                      "dispatches": dict(b.tag_counts)}
+        want_sync = tenants * len(families) if phase == "cold" else 0
+        if b.tag_counts["serve.dev_sync"] != want_sync:
+            raise AssertionError(
+                f"serve {phase}: serve.dev_sync fired "
+                f"{b.tag_counts['serve.dev_sync']} times, want {want_sync} "
+                f"(one per tenant, family and snapshot, cold only)")
+        want_engine = tenants * len(families) + len(families)
+        if b.tag_counts["fleet.engine"] != want_engine:
+            raise AssertionError(
+                f"serve {phase}: {b.tag_counts['fleet.engine']} fleet.engine"
+                f" dispatches for {want_engine} evaluate and tune calls")
+    return rec, results
+
+
+def traced_replay(device="cuda"):
+    """Phase 13 (c): the ``TRACED_TASKS``-task ``workload_replay`` (seed 0,
+    ``under_frac=0.2``) through ``ClusterSim(engine="fused")`` untraced and
+    traced: placements, retries, evictions and wastage bitwise equal, and
+    one ``admission.drain`` dispatch per drain.  Writes the trace and
+    returns the record with ``summarize()``'s table."""
+    from repro_torch import obs
+    from repro_torch.analysis.contracts import dispatch_budget
+    from repro_torch.core import RetrySpec
+    from repro_torch.sched import ClusterSim, Node
+    from repro_torch.workloads import scenarios
+    dev = torch.device(device)
+    wf = scenarios.get("workload_replay", n_tasks=TRACED_TASKS, seed=0,
+                       device=dev)
+    runs = {}
+    for traced in (False, True):
+        sim = ClusterSim([Node(n, c) for n, c in CLUSTER_NODES],
+                         engine="fused", device=dev)
+        jobs = wf.to_jobs(under_frac=0.2, seed=0)
+        obs.clear()
+        with dispatch_budget() as b:
+            res, secs = _timed(lambda: sim.run(jobs, RetrySpec("ksplus"),
+                                               trace=traced), dev)
+        runs[traced] = (res, secs, dict(sim.stats), b.tag_counts)
+    (base, base_s, base_st, _), (res, secs, st, tags) = runs[False], \
+        runs[True]
+    for f in ("placements", "retries", "evictions", "starved", "doomed",
+              "unschedulable", "total_wastage_gbs"):
+        if getattr(res, f) != getattr(base, f):
+            raise AssertionError(f"traced replay: {f} differs from the "
+                                 f"untraced one")
+    if st != base_st:
+        raise AssertionError(f"traced replay stats {st} vs {base_st}")
+    if tags["admission.drain"] != st["drains"]:
+        raise AssertionError(f"{tags['admission.drain']} admission.drain "
+                             f"dispatches for {st['drains']} drains")
+    evs = obs.events()
+    if sum(e["name"] == "admission.drain" for e in evs) != st["drains"]:
+        raise AssertionError("one admission.drain span per drain")
+    os.makedirs(os.path.dirname(OBS_TRACE), exist_ok=True)
+    n_events = obs.write_chrome_trace(OBS_TRACE, evs)
+    obs.clear()
+    return {"tasks": TRACED_TASKS, "untraced_s": base_s, "traced_s": secs,
+            "retries": res.retries, "placements": len(res.placements),
+            "dispatches": dict(tags), **st, "events": n_events,
+            "trace": os.path.relpath(OBS_TRACE, ROOT),
+            "summary": obs.summarize(evs)}
+
+
+def prediction_service(err, device="cuda"):
+    """Phase 13 (see the module docstring) on ``device``, against the same
+    work on the CPU; returns its record and the ``fleet_engine`` group
+    tables (b) launched.  (``device="cpu"`` rehearses it; the CPU side
+    then repeats itself.)"""
+    from repro_torch.analysis.contracts import dispatch_budget
+    from repro_torch.kernels.wastage import ops
+    from repro_torch.launch.serve import serve_demo
+    from repro_torch.serve.bench import run_saturation
+    dev = torch.device(device)
+    rec = {}
+
+    # (a) the saturation benchmark at the reference's defaults
+    ops.reset_launches()
+    with dispatch_budget() as b:
+        sat, secs = _timed(lambda: run_saturation(device=dev), dev)
+    launches = dict(ops.LAUNCHES)
+    thr, lat, disc = sat["throughput"], sat["latency"], sat["discipline"]
+    if not (thr["bitwise"] and disc["warm_zero_compiles"]
+            and disc["cache_hit_ok"]):
+        raise AssertionError(f"run_saturation: bitwise {thr['bitwise']}, "
+                             f"warm_zero_compiles "
+                             f"{disc['warm_zero_compiles']}, cache_hit_ok "
+                             f"{disc['cache_hit_ok']}")
+    want = b.tag_counts["fleet.engine"] if dev.type == "cuda" else 0
+    if launches != {"oom_probe": 0, "wastage_eval": 0, "fleet_engine": want} \
+            or b.tag_counts["fleet.engine"] <= 0:
+        raise AssertionError(f"run_saturation launched {launches} for "
+                             f"{b.tag_counts['fleet.engine']} fleet calls")
+    rec["saturation"] = {**sat, "seconds": secs, "launches": launches}
+
+    # (b) sarek(2000) histories, on the card and on the CPU
+    families = _sarek_families(SERVE_INSTANCES)
+    ops.reset_launches()
+    with engine_tables(ops) as tables:
+        card, card_res = serve_histories(families, SERVE_TENANTS, dev)
+    launches = dict(ops.LAUNCHES)
+    calls = 2 * (SERVE_TENANTS * len(families) + len(families))
+    want = calls if dev.type == "cuda" else 0
+    if launches != {"oom_probe": 0, "wastage_eval": 0, "fleet_engine": want}:
+        raise AssertionError(f"serve histories launched {launches}, want "
+                             f"one fleet_engine per evaluate dispatch and "
+                             f"per tune group ({calls})")
+    cpu, cpu_res = serve_histories(families, 1, "cpu")
+    for f in families:
+        (ea, ta), (eb, tb) = card_res[f], cpu_res[f]
+        if (ea.n, ea.succeeded, ea.mean_attempts) != (
+                eb.n, eb.succeeded, eb.mean_attempts):
+            raise AssertionError(f"evaluate {f}: card {ea} vs cpu {eb}")
+        np.testing.assert_allclose(ea.total_gbs, eb.total_gbs, rtol=1e-4,
+                                   err_msg=f"evaluate {f}")
+        if ta.best != tb.best:
+            raise AssertionError(f"tune_offset {f}: card {ta.best} vs cpu "
+                                 f"{tb.best}")
+        np.testing.assert_allclose(ta.totals, tb.totals, rtol=1e-4,
+                                   err_msg=f"tune_offset {f}")
+    rec["histories"] = {
+        "instances": SERVE_INSTANCES, "launches": launches, "card": card,
+        "cpu": cpu, "total_gbs": {f: r[0].total_gbs
+                                  for f, r in card_res.items()},
+        "best": {f: [r[1].best.peak, r[1].best.start,
+                     r[1].best.last_peak_bump]
+                 for f, r in card_res.items()}}
+
+    # (c) tracing only observes
+    rec["traced"] = traced_replay(dev)
+
+    # (d) serve_demo on the card and on the CPU
+    got, secs = _timed(lambda: serve_demo("qwen3-1.7b", device=dev), dev)
+    want = serve_demo("qwen3-1.7b", device="cpu")
+    if (got["served"], got["batches"]) != (want["served"], want["batches"]):
+        raise AssertionError(f"serve_demo: card {got} vs cpu {want}")
+    rec["serve_demo"] = {**got, "wall_s": secs, "cpu": want}
+    # largest first: the table whose launch must move the most bytes
+    return rec, sorted(tables.seen, key=lambda c: -table_bytes(
+        c[0], 4 + 4 + 1, engine=True)[0])
+
+
+def serve_engine_entry(entry, recorded, launches, err):
+    """The ``fleet_engine`` record's serve side: the kernel against the
+    plain engine at every table phase 13 launched, then timed at the
+    largest, ``recorded[0]`` (a tune group: every candidate's lanes in one
+    launch)."""
+    from repro_torch.kernels.wastage import ops, ref
+    lanes = check_engine([(f"serve {describe(t)[1]}", t, mm, dt, n)
+                          for t, mm, dt, n in recorded], err)
+    etable, mm, dt, max_attempts = recorded[0]
+    nbytes, valid = table_bytes(etable, 4 + 4 + 1, engine=True)
+    buckets = len({g.mems.data_ptr() for g in etable.groups})
+    jobs = len(etable.groups) // buckets
+    ms = time_ms(lambda: ops.fleet_engine(etable, mm, dt, max_attempts))
+    plain_ms = time_ms(lambda: ref.plain_engine(etable, mm, dt,
+                                                max_attempts))
+    serve = _entry("fleet_engine", {"fleet_engine": launches}, err, ms,
+                   plain_ms, None, nbytes, valid * jobs,
+                   f"the largest serve call: tune_offset's {jobs} "
+                   f"candidates over one family's {etable.n_lanes // jobs} "
+                   "executions in one launch", F32_OPS_PER_S,
+                   groups=describe(etable)[1])
+    entry["serve"] = {k: serve[k] for k in (
+        "launches", "ms", "plain_ms", "bound_ms", "bound_by", "bytes",
+        "ops", "timed", "groups")}
+    entry["serve"]["tables_checked"] = len(recorded)
+    entry["serve"]["lanes_checked"] = lanes
+    entry["max_abs_err"] = err["fleet_engine"]
+    return entry["serve"]
+
+
+def serve_bench():
+    """Phase 13 alone on the card, one JSON line (and the replay's span
+    table): ``python3 -c "import chip_smoke; chip_smoke.serve_bench()"``
+    from the checkout."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build
+    from repro_torch.kernels.wastage import ops
+    build.build(ops.SOURCE)
+    err = dict.fromkeys(REPLACES, 0.0)
+    t0 = time.perf_counter()
+    rec, tables = prediction_service(err)
+    secs = time.perf_counter() - t0
+    entry = {"name": "fleet_engine"}
+    serve = serve_engine_entry(entry, tables,
+                               rec["histories"]["launches"]["fleet_engine"],
+                               err)
+    log(rec["traced"].pop("summary"))
+    log(json.dumps({"device": device_line(), "phase13_s": secs,
+                    "fleet_engine_serve": serve, **rec}))
+
+
+def replay_time(runs=1):
+    """Phase 12's fused replay of ``workload_replay(REPLAY_TASKS)`` timed
+    ``runs`` times on whatever ``repro_torch`` is importable, one JSON
+    line each; with an earlier tree's ``src`` first on ``sys.path`` (see
+    :func:`fleet_split`) it times that tree's replay."""
+    import repro_torch
+    from repro_torch.core import RetrySpec
+    from repro_torch.kernels import build
+    from repro_torch.kernels.wastage import ops
+    from repro_torch.sched import ClusterSim, Node
+    from repro_torch.workloads import scenarios
+    build.build(ops.SOURCE)
+    wf = scenarios.get("workload_replay", n_tasks=REPLAY_TASKS, seed=1,
+                       device="cuda")
+    for i in range(runs):
+        sim = ClusterSim([Node(n, c) for n, c in CLUSTER_NODES],
+                         engine="fused")
+        jobs = wf.to_jobs(under_frac=0.1, seed=1)
+        res, secs = _timed(lambda: sim.run(jobs, RetrySpec("ksplus")),
+                           torch.device("cuda"))
+        log(json.dumps({"run": i, "replay_s": secs, "retries": res.retries,
+                        **sim.stats, "device": device_line(),
+                        "package": os.path.dirname(repro_torch.__file__)}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1489,6 +1798,56 @@ def main() -> int:
     log(f"phase 12: oom_probe at the replay's table {k['ms']:.4f} ms (plain "
         f"{k['plain_ms']:.4f}, bound {k['bound_ms']:.5f} by "
         f"{k['bound_by']}) over {k['groups']}")
+
+    # 13. the prediction service on the card
+    t0 = time.perf_counter()
+    rec, serve_tables = prediction_service(err)
+    sat = rec["saturation"]
+    thr, lat, disc = sat["throughput"], sat["latency"], sat["discipline"]
+    log(f"phase 13: run_saturation: {thr['req_s_batched']:.1f} req/s "
+        f"batched, {thr['req_s_unbatched']:.1f} unbatched (x"
+        f"{thr['speedup_x']:.2f}), mean batch {thr['mean_batch']:.1f}; "
+        f"p50 {lat['p50_ms']:.4f} ms, p99 {lat['p99_ms']:.4f} ms at "
+        f"{lat['rate_rps']:g} req/s; cache hit rate "
+        f"{disc['cache_hit_rate']}; bitwise, no warm build or load; "
+        f"fleet_engine launches {sat['launches']['fleet_engine']} "
+        f"({sat['seconds']:.2f} s)")
+    h = rec["histories"]
+    for side in ("card", "cpu"):
+        r = h[side]
+        log(f"phase 13: sarek({h['instances']}) histories on the {side}: "
+            f"{r['tenants']} tenants x {r['families']} families seeded in "
+            f"{r['seed_s']:.3f} s; per evaluate cold "
+            f"{r['cold']['evaluate']['mean_s']:.5f} s, warm "
+            f"{r['warm']['evaluate']['mean_s']:.5f} s; per tune cold "
+            f"{r['cold']['tune']['mean_s']:.5f} s, warm "
+            f"{r['warm']['tune']['mean_s']:.5f} s")
+    log(f"phase 13: card == cpu on every family's evaluate and tune_offset;"
+        f" fleet_engine launches {h['launches']['fleet_engine']}, one per "
+        f"evaluate dispatch and per tune group; serve.dev_sync once per "
+        f"(tenant, family, snapshot) cold, never warm")
+    tr = rec["traced"]
+    log(f"phase 13: {tr['tasks']}-task fused replay traced == untraced "
+        f"({tr['traced_s']:.3f} s vs {tr['untraced_s']:.3f} s): "
+        f"{tr['drains']} drains = {tr['dispatches']['admission.drain']} "
+        f"admission.drain dispatches, {tr['host_reads']} host reads for "
+        f"{tr['drain_iterations']} drain iterations; {tr['events']} events "
+        f"in {tr['trace']}; top spans:")
+    for line in tr.pop("summary").splitlines()[:8]:
+        log("phase 13:   " + line)
+    d = rec["serve_demo"]
+    log(f"phase 13: serve_demo(qwen3-1.7b) on the card: served "
+        f"{d['served']} in {d['batches']} batches ({d['wall_s']:.2f} s), as "
+        f"on the cpu")
+    engine = next(k for k in kernels if k["name"] == "fleet_engine")
+    sv = serve_engine_entry(engine, serve_tables,
+                            h["launches"]["fleet_engine"], err)
+    log(f"phase 13: fleet_engine == plain engine at all "
+        f"{sv['tables_checked']} serve tables ({sv['lanes_checked']} "
+        f"lanes); at the largest {sv['ms']:.4f} ms (plain "
+        f"{sv['plain_ms']:.4f}, bound {sv['bound_ms']:.5f} by "
+        f"{sv['bound_by']}) over {sv['groups']} "
+        f"({time.perf_counter() - t0:.1f} s) " + json.dumps(rec))
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

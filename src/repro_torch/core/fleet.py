@@ -38,11 +38,13 @@ from typing import List, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import record_dispatch
 from repro_torch.core import envelope as _env
 from repro_torch.core.allocation import AllocationPlan
 from repro_torch.core.envelope import PackedEnvelopes, RetrySpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels.wastage import ops
+from repro_torch.obs import trace as _obs
 
 __all__ = [
     "RetrySpec",
@@ -369,8 +371,21 @@ def simulate_fleet_many(
     :func:`~repro_torch.kernels.wastage.ops.fleet_engine` call: on a CUDA
     batch one launch of the hand-written kernel runs every attempt of every
     lane, and the outcome comes back in one host read; on a CPU batch
-    the plain engine runs.
+    the plain engine runs.  Each call records one ``fleet.engine``
+    dispatch (one kernel launch, or one plain-engine run).
     """
+    if _obs.enabled:
+        with _obs.span("fleet.simulate_many", jobs=len(jobs)):
+            return _simulate_fleet_many_impl(
+                jobs, mems, dt, machine_memory=machine_memory,
+                max_attempts=max_attempts, k=k, device=device)
+    return _simulate_fleet_many_impl(
+        jobs, mems, dt, machine_memory=machine_memory,
+        max_attempts=max_attempts, k=k, device=device)
+
+
+def _simulate_fleet_many_impl(jobs, mems, dt, *, machine_memory,
+                              max_attempts, k, device) -> List[FleetResult]:
     batch = _as_batch(mems, device)
     B = batch.n
     results = [FleetResult(wastage_gbs=np.zeros((B,), np.float64),
@@ -379,6 +394,7 @@ def simulate_fleet_many(
     if not batch.buckets or not jobs:
         return results
     table, owners = _engine_table(jobs, batch, k)
+    record_dispatch("fleet.engine")
     # One host read for every lane's outcome.
     out = ops.fleet_engine(table, machine_memory, float(dt),
                            max_attempts).cpu().numpy()

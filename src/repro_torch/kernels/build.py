@@ -12,7 +12,12 @@ driver API, so nothing links against ``libcuda``.  The package must run
 from its checkout (``src/`` layout, e.g. ``PYTHONPATH=src`` or an editable
 install): an installed copy has no checkout to build into and raises.
 Nothing is built or loaded at import: each kernel's first CUDA launch calls
-:func:`load` for its source.
+:func:`load` for its source.  :func:`load` is safe to call from several
+threads (the serving front's pump thread may be the first to launch a
+kernel): one lock covers its check and fill, so a library is built and
+loaded once per process.  Every build and every load reports itself to
+:func:`repro_torch.analysis.contracts.record_compile` — the port's only
+compiles — so a warm path can be held to ``dispatch_budget(compiles=0)``.
 """
 
 from __future__ import annotations
@@ -22,11 +27,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+
+from repro_torch.analysis.contracts import record_compile
 
 __all__ = ["NVCC_FLAGS", "INCLUDE", "build_dir", "build", "build_all",
            "build_log", "check_tma", "load", "launch"]
@@ -40,6 +48,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 INCLUDE = Path(__file__).resolve().parent / "csrc"
 
 _libs: dict[Path, ctypes.CDLL] = {}
+_libs_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -83,7 +92,8 @@ def build(source: Path) -> tuple[Path, float]:
     if path.exists():
         return path, 0.0
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    # named by process and thread: build_all and load may build at once
+    tmp = path.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE), "-o", str(tmp),
@@ -95,7 +105,9 @@ def build(source: Path) -> tuple[Path, float]:
             f"{proc.stderr}")
     path.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, path)
-    return path, time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
+    record_compile(source.name, "build", seconds)
+    return path, seconds
 
 
 def build_all(sources) -> dict[str, tuple[Path, float]]:
@@ -132,15 +144,21 @@ def load(source: Path, signatures: dict) -> ctypes.CDLL:
     """The library of ``source`` with its C signatures declared (built if
     needed).  ``signatures`` maps each C function to its ``argtypes``; every
     function returns the launch's ``cudaError_t`` as an int."""
-    lib = _libs.get(source)
-    if lib is None:
-        path, _ = build(source)
-        lib = ctypes.CDLL(str(path))
-        for name, argtypes in signatures.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        _libs[source] = lib
+    lib = _libs.get(source)  # the warm path takes no lock
+    if lib is not None:
+        return lib
+    with _libs_lock:
+        lib = _libs.get(source)
+        if lib is None:
+            path, _ = build(source)
+            t0 = time.perf_counter()
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            _libs[source] = lib
+            record_compile(source.name, "load", time.perf_counter() - t0)
     return lib
 
 

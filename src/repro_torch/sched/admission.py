@@ -74,8 +74,11 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import record_dispatch
 from repro_torch.core.envelope import PAD_START, fits_column
 from repro_torch.device import resolve_device
+from repro_torch.obs import metrics as _met
+from repro_torch.obs import trace as _obs
 
 __all__ = ["AdmissionState"]
 
@@ -341,6 +344,7 @@ class AdmissionState:
         the initial upload this fires again only when lanes are added or
         the segment axis grows — never on node join/leave, which only
         change the operands of the next program."""
+        record_dispatch("admission.dev_sync")
         up = lambda a: torch.from_numpy(  # noqa: E731
             np.ascontiguousarray(a, np.float64)).to(self.device)
         self._dstarts = up(self.starts)
@@ -357,6 +361,7 @@ class AdmissionState:
         """In-place device update of re-planned lanes."""
         if self.backend == "numpy" or self._dirty_dev:
             return
+        record_dispatch("admission.scatter", 3)
         rows = torch.from_numpy(np.asarray(lanes, np.int64)).to(self.device)
         for buf, host in ((self._dstarts, self.starts),
                           (self._dpeaks, self.peaks),
@@ -367,6 +372,7 @@ class AdmissionState:
     def _push_admit(self, lane: int):
         if self.backend == "numpy" or self._dirty_dev:
             return
+        record_dispatch("admission.scatter")
         self._dadmit[lane] = float(self.admit_t[lane])
 
     def _operands(self, rows: Sequence[int], lanes, now: float):
@@ -404,6 +410,7 @@ class AdmissionState:
             fits[n, q]     = all_g need[q, g] <= resid[n, q, g] + tol
             minresid[n, q] = min_g resid[n, q, g]
         """
+        record_dispatch("admission.columns")
         if self._dirty_dev:
             self._dev_sync()
         caps, run_idx, run_valid, q_idx, now, tol = self._operands(
@@ -448,6 +455,21 @@ class AdmissionState:
         restriction is exact by residual monotonicity (a lane unfit on the
         base residuals can never place within the drain).
         """
+        if _obs.enabled:
+            q = int(np.asarray(lanes).size)
+            with _obs.span("admission.drain", backend=self.backend,
+                           q=q) as sp:
+                out = self._drain(now, lanes, select)
+                sp.add(placed=len(out))
+                _met.hist("admission.drain.lanes",
+                          buckets=_met.COUNT_BUCKETS).observe(q)
+                _met.hist("admission.drain.placed",
+                          buckets=_met.COUNT_BUCKETS).observe(len(out))
+            return out
+        return self._drain(now, lanes, select)
+
+    def _drain(self, now: float, lanes: Sequence[int],
+               select: str) -> List[tuple]:
         if select not in ("first", "headroom"):
             raise ValueError(f"unknown drain select rule: {select!r}")
         self.sync_now(now)
@@ -566,6 +588,7 @@ class AdmissionState:
         out = torch.full((2, Q + 1), B, dtype=torch.int64, device=dev)
         count = torch.zeros((), dtype=torch.int64, device=dev)
         self.stats["drain_dispatches"] += 1
+        record_dispatch("admission.drain")
         while True:
             self.stats["drain_iterations"] += 1
             fits = (need_q[None] <= resid + tol).all(dim=-1) & active[None]

@@ -113,6 +113,7 @@ import numpy as np
 
 import torch
 
+from repro_torch.analysis.contracts import record_dispatch
 from repro_torch.core import AllocationPlan, alloc_at, first_violation
 from repro_torch.core.envelope import (
     PAD_START,
@@ -132,6 +133,8 @@ from repro_torch.core.fleet import pack_traces
 from repro_torch.core.retry import apply_retry_spec
 from repro_torch.device import resolve_device
 from repro_torch.kernels.wastage import ops
+from repro_torch.obs import metrics as _met
+from repro_torch.obs import trace as _obs
 from repro_torch.sched.admission import AdmissionState
 from repro_torch.sched.faults import FaultEvent, FaultSchedule
 
@@ -452,8 +455,15 @@ class ClusterSim:
                            Sequence[OffsetCandidate]] = None,
             faults: Union[None, FaultSchedule,
                           Sequence[FaultEvent]] = None,
+            trace: bool = False
             ) -> Union[ClusterResult, List[ClusterResult]]:
         """Replay ``jobs`` through the cluster; see the module docstring.
+
+        ``trace=True`` scope-enables :mod:`repro_torch.obs` tracing for
+        the replay (restoring the previous state afterwards); when tracing
+        is already enabled the replay is spanned either way.  Tracing only
+        observes — placements/retries/evictions are bitwise identical
+        traced or untraced (``tests/test_torch_obs.py``).
 
         Without ``offsets`` returns one :class:`ClusterResult` and mutates
         the ``Job`` objects (attempts / wasted_gbs / plan) like the legacy
@@ -474,6 +484,17 @@ class ClusterSim:
         engines replay it identically — evictions, requeue-with-backoff,
         doomed-descendant accounting and starvation parking included.
         """
+        if trace and not _obs.enabled:
+            with _obs.tracing():
+                return self.run(jobs, retry, offsets, faults)
+        if _obs.enabled:
+            with _obs.span("cluster.run", engine=self.engine,
+                           drain=self.drain, jobs=len(jobs)):
+                return self._run_impl(jobs, retry, offsets, faults)
+        return self._run_impl(jobs, retry, offsets, faults)
+
+    def _run_impl(self, jobs: List[Job], retry, offsets, faults
+                  ) -> Union[ClusterResult, List[ClusterResult]]:
         faults = _norm_faults(faults)
         self._validate_submit(jobs)
         self.stats = {}
@@ -800,6 +821,7 @@ class ClusterSim:
                 np.ascontiguousarray(starts[idxs], np.float32),
                 np.ascontiguousarray(peaks[idxs], np.float32),
                 dmems, dlengths)], self.device)
+            record_dispatch("cluster.first_attempt")
             v, _, _ = ops.oom_probe_groups(table, dtv)
             viol[idxs] = v.cpu().numpy()
         self.stats["probe_groups"] = self.stats.get("probe_groups", 0) \
@@ -1452,6 +1474,13 @@ class ClusterSim:
                 queue.push_front(parked)
                 parked.clear()
 
+        if _obs.enabled:
+            # Resolve the engine series once — the registry lookup (lock
+            # + dict get) is too costly to repeat on every event batch.
+            _s_wastage = _met.series("cluster.wastage_gbs")
+            _s_util = _met.series("cluster.utilization")
+            _s_starve = _met.series("cluster.starvation_s")
+
         try_admit(0.0)
         guard = 0
         while events:
@@ -1498,6 +1527,15 @@ class ClusterSim:
                     process_join(t, batch[i][3], batch[i][4])
                     i += 1
                     try_admit(t)
+
+            if _obs.enabled:
+                # Per-event-batch engine series keyed by sim time, fed
+                # from the host values the loop already holds.
+                _s_wastage.append(t, float(wasted.sum()))
+                _s_util.append(t, area_used / max(
+                    cap_integral + cap_sum * (t - cap_last), 1e-9))
+                _s_starve.append(t, starvation_s)
+                _obs.instant("cluster.event_batch", t=t, n=len(batch))
 
         for ji in parked:
             starvation_s += last_t - park_t.pop(ji)

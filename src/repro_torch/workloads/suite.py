@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.device import resolve_device
+from repro_torch.obs import trace as _obs
 from repro_torch.workloads import scenarios as _scen
 from repro_torch.workloads.arrivals import diurnal_arrivals, poisson_arrivals
 
@@ -137,8 +138,13 @@ def run_suite(cases: Sequence[SuiteCase], nodes=None, retry=None,
         fleet = fresh_fleet()
         jobs = _case_jobs(case, nt, device)
         faults = _case_faults(case, fleet)
-        res = ClusterSim(fleet, engine=engine, device=device).run(
-            jobs, retry, faults=faults)
+        if _obs.enabled:
+            with _obs.span("suite.case", case=case.name, jobs=len(jobs)):
+                res = ClusterSim(fleet, engine=engine, device=device).run(
+                    jobs, retry, faults=faults)
+        else:
+            res = ClusterSim(fleet, engine=engine, device=device).run(
+                jobs, retry, faults=faults)
         if check_oracle:
             oracle = ClusterSim(fresh_fleet(), engine="legacy",
                                 device=device).run(

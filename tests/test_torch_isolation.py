@@ -22,6 +22,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.wastage import ops
+from repro_torch.launch.serve import serve_demo
 from repro_torch.models import init_cache, init_params, load_jax_params
 from repro_torch.sched import (
     AdmissionState,
@@ -32,6 +33,8 @@ from repro_torch.sched import (
     evaluate_workflow,
     run_paper_experiment,
 )
+from repro_torch.serve import PredictionServer, TenantRegistry
+from repro_torch.serve.bench import run_saturation
 from repro_torch.traces import eager
 from repro_torch.workloads import (
     FamilyRecipe,
@@ -94,6 +97,12 @@ ENTRY_POINTS = {
     "sched.AdmissionState": lambda: AdmissionState([1.0], K=1, G=4),
     "sched.ElasticPlanner": lambda: ElasticPlanner(backend="fused"),
     "sched.HBMFootprintModel": lambda: HBMFootprintModel(),
+    "serve.PredictionServer": lambda: PredictionServer(),
+    "serve.TenantRegistry": lambda: TenantRegistry(),
+    "serve.bench.run_saturation": lambda: run_saturation(
+        tenants=1, n_requests=8),
+    "launch.serve.serve_demo": lambda: serve_demo("qwen3-1.7b",
+                                                  requests=1),
 }
 
 

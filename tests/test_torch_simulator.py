@@ -87,7 +87,7 @@ def test_run_paper_experiment_averages_cells():
                                        for c in cells])
 
 
-def test_scenario_inputs_not_ported_yet():
+def test_scenario_and_trace_inputs_accepted():
     """Scenario names and ``WorkflowTrace`` inputs are accepted now, on
     both entry points: a name is its scenario synthesized on the run's
     device with the cell's seed."""
