@@ -103,7 +103,35 @@ Phases (any failure exits non-zero; nothing is caught):
    printed; (d) ``serve_demo("qwen3-1.7b")`` on the card admits the same
    batches as on the CPU.  Then ``fleet_engine`` against the plain engine
    at every group table (b) launched, and timed at the one that moves the
-   most bytes (the ``fleet_engine`` record's ``serve`` entry).
+   most bytes (the ``fleet_engine`` record's ``serve`` entry);
+14. training on the card: (a) the backward kernels (built in phase 2 with
+   the forwards, the same two sources) with registers and spills from
+   ``ptxas -v``; (b) ``flash_attention_bwd`` (MQA, non-causal GQA, window
+   64 with rows that see no key, unaligned S = 100, hd = 80) and
+   ``ssd_bwd`` (chunks 32 / 64 / 128, S = 96 and a padded S = 100, G = 2
+   and 4), f32 and bf16, against their plain versions and against autograd
+   through the plain forward on the same CUDA tensors: f32 within 1e-4 of
+   each element and of the tensor's largest, bf16 within 2e-2 of each
+   (the forward tests' bf16 tolerance); the forward kernel's new ``lse``
+   output against the plain one; (c) one ``train_step`` of the full-width
+   model cut to 6 Mamba2 blocks + the shared block, B = 1, S = 300, card
+   against CPU: the loss and every gradient, and every parameter after
+   AdamW against the CPU's AdamW fed the card's gradients, at phase 10's
+   tolerances, but for the bf16 per-head gradients (``A_log``,
+   ``dt_bias``), held to a relative L2 error of 0.1 (see
+   ``train_card_vs_cpu``); (d) ``launch.train.train("zamba2-2.7b", smoke=False,
+   seq=2048, batch=1, steps=8)`` (``remat="none"``, as the reference's
+   ``train``): seconds per step (median after the first), tokens/s, peak
+   memory, every loss finite, and exactly 54 ``ssd`` + 54 ``ssd_bwd`` and
+   9 ``flash_attention`` + 9 ``flash_attention_bwd`` launches in every
+   step; its last step under ``torch.profiler`` (device ms by kernel
+   kind); then ``make_train_step`` with the config's own ``remat="full"``
+   at 2 x 2048 for 3 steps, where the forward kernels launch twice a step;
+   (e) zamba2-smoke trained on the card with checkpoints every 3 steps,
+   killed at step 5 and resumed: losses bitwise those of an uninterrupted
+   run; (f) both backward kernels timed at the 1 x 2048 training shapes
+   beside their plain versions, their bounds and, for attention, the
+   backward of ``scaled_dot_product_attention``.
 
 The card's ``nvidia-smi`` line comes two lines before the end, then
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -139,6 +167,10 @@ SOURCES = {"oom_probe": WASTAGE, "wastage_eval": WASTAGE,
            "flash_attention":
                "src/repro_torch/kernels/flash_attention/csrc/"
                "flash_attention.cu"}
+SOURCES.update(ssd_bwd=SOURCES["ssd"],
+               flash_attention_bwd=SOURCES["flash_attention"])
+# The backward kernels have no Pallas counterpart: the reference trains
+# through the XLA forms of the two layers and JAX's autodiff of them.
 REPLACES = {"oom_probe": "src/repro/kernels/wastage/kernel.py:67",
             # every attempt of the reference engine's while_loop, each
             # attempt the oom_probe kernel's work
@@ -146,7 +178,9 @@ REPLACES = {"oom_probe": "src/repro/kernels/wastage/kernel.py:67",
             "wastage_eval": "src/repro/kernels/wastage/kernel.py:27",
             "ssd": "src/repro/kernels/ssd/kernel.py:28",
             "flash_attention":
-                "src/repro/kernels/flash_attention/kernel.py:33"}
+                "src/repro/kernels/flash_attention/kernel.py:33",
+            "ssd_bwd": "src/repro/models/mamba2.py:30",
+            "flash_attention_bwd": "src/repro/models/attention.py:92"}
 KW = dict(seed=0, train_frac=0.5, k=4, machine_memory=128.0)  # the cells
 ARCH = "zamba2-2.7b"
 SERVE_BATCHES = ((4, 2048), (3, 1000))  # (requests, prompt tokens)
@@ -1580,6 +1614,515 @@ def replay_time(runs=1):
                         "package": os.path.dirname(repro_torch.__file__)}))
 
 
+# ------------------------------------------------------------- phase 14
+def bwd_parity_cases():
+    """The backward kernels' sweeps, each in float32 and bfloat16.  The
+    window case has queries past ``Skv + window - 1``, rows that see no
+    key; S = 100 pads the attention tiles and the SSD's 32-row chunks."""
+    rng = np.random.default_rng(4)
+    flash, ssd = [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shape, causal, window in [
+                ("MQA", (1, 128, 128, 4, 1, 64), True, None),
+                ("non-causal GQA", (2, 64, 192, 4, 2, 32), False, None),
+                ("window=64, key-less rows", (1, 192, 96, 2, 2, 32), True,
+                 64),
+                ("unaligned S=100", (1, 100, 100, 2, 2, 32), True, None),
+                ("hd=80", (1, 96, 96, 4, 4, 80), True, None)]:
+            flash.append((f"{name} {dtype}", flash_case(
+                rng, *shape, dtype, causal, window)))
+        for shape in [(1, 128, 2, 16, 1, 32, 32), (2, 256, 4, 64, 2, 64, 64),
+                      (1, 96, 2, 32, 1, 16, 32), (1, 100, 2, 32, 1, 16, 64),
+                      (1, 128, 8, 16, 4, 16, 128)]:
+            ssd.append((f"{shape} {dtype}", ssd_case(rng, *shape, dtype)))
+    return flash, ssd
+
+
+def _bwd_close(got, want, dtype, what, err, name):
+    """float32: within 1e-4 of the tensor's largest |want| (and 1e-4 of
+    each element); bf16: 2e-2 of each element plus 2e-2 of the largest."""
+    scale = max(float(want.float().abs().max()), 1e-30)
+    rtol, atol = ((1e-4, 1e-4 * scale) if dtype == torch.float32
+                  else (2e-2, 2e-2 * scale))
+    _close(got, want, (rtol, atol), what, err, name)
+
+
+def check_bwd_kernels(flash, ssd, err):
+    """Each backward kernel against its plain version and against autograd
+    through the plain forward, on the same CUDA tensors."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for name, (q, k, v, causal, window) in flash:
+        kw = dict(causal=causal, window=window)
+        o, lse = fops.ref.flash_attention_fwd(q, k, v, **kw)
+        do = torch.randn(o.shape, generator=gen, device="cuda").to(q.dtype)
+        got = fops.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        want = fops.ref.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        auto = torch.autograd.grad(fops.ref.flash_attention(*leaves, **kw),
+                                   leaves, do)
+        torch.cuda.synchronize()
+        for g, w, a, t in zip(got, want, auto, "qkv"):
+            _bwd_close(g, w, q.dtype, f"flash_attention_bwd d{t} {name}",
+                       err, "flash_attention_bwd")
+            _bwd_close(g, a, q.dtype, f"flash_attention_bwd d{t} {name} vs "
+                       f"autograd", err, "flash_attention_bwd")
+        # the forward kernel's lse, where every row sees a key
+        if window is None:
+            _, lse_k = fops._forward(q, k, v, causal, window, with_lse=True)
+            torch.cuda.synchronize()
+            _close(lse_k, lse, FLASH_TOL[torch.float32] if q.dtype ==
+                   torch.float32 else (2e-2, 2e-2), f"flash lse {name}", err,
+                   "flash_attention")
+    for name, (X, A, Bm, Cm, chunk) in ssd:
+        y, _ = sops.ref.ssd(X, A, Bm, Cm, chunk)
+        dY = torch.randn(y.shape, generator=gen, device="cuda").to(X.dtype)
+        got = sops.ssd_bwd(X, A, Bm, Cm, chunk, dY)
+        want = sops.ref.ssd_bwd(X, A, Bm, Cm, chunk, dY)
+        leaves = [t.detach().clone().requires_grad_() for t in (X, A, Bm, Cm)]
+        auto = torch.autograd.grad(sops.ref.ssd(*leaves, chunk)[0], leaves,
+                                   dY)
+        torch.cuda.synchronize()
+        for g, w, a, t in zip(got, want, auto, ("X", "A", "Bm", "Cm")):
+            _bwd_close(g, w, X.dtype, f"ssd_bwd d{t} {name}", err, "ssd_bwd")
+            _bwd_close(g, a, X.dtype, f"ssd_bwd d{t} {name} vs autograd",
+                       err, "ssd_bwd")
+
+
+class TrainSteps:
+    """While active, ``launch.train``'s ``make_train_step`` hands out steps
+    that record each step's kernel launches (the four LM counters, read
+    just before and just after the step) and run step ``profile_at`` under
+    ``torch.profiler``.  It only records."""
+
+    def __init__(self, profile_at=None):
+        from repro_torch.launch import train as train_mod
+        self.mod, self.profile_at = train_mod, profile_at
+        self.launches, self.profile = [], None
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as fops
+        from repro_torch.kernels.ssd import ops as sops
+        self.orig = orig = self.mod.make_train_step
+
+        def counts():
+            return {**sops.LAUNCHES, **fops.LAUNCHES}
+
+        def make(*args, **kw):
+            step_fn = orig(*args, **kw)
+
+            def step(model, opt, batch, i):
+                before = counts()
+                if i == self.profile_at:
+                    self.profile = profile_call(
+                        lambda: step_fn(model, opt, batch, i))
+                    out = self.profile.pop("result")
+                else:
+                    out = step_fn(model, opt, batch, i)
+                after = counts()
+                self.launches.append({k: after[k] - before[k]
+                                      for k in after})
+                return out
+            return step
+        self.mod.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_train_step = self.orig
+
+
+TRAIN_KINDS = {"ssd_bwd": ("ssd_bwd_",),
+               "ssd": ("ssd_states", "ssd_pass", "ssd_scan"),
+               "flash_attention_bwd": ("flash_bwd_",),
+               "flash_attention": ("flash_fwd",),
+               "matmul": ("gemm", "xmma", "cutlass", "nvjet", "cublas")}
+
+
+def profile_call(fn):
+    """``fn()`` once under ``torch.profiler``: wall ms, device busy ms and
+    idle share, device ms by kernel kind (``TRAIN_KINDS``, in order) and
+    the top kernels; ``result`` holds what ``fn`` returned."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_kind, top = {}, []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total / 1e3
+        kind = next((k for k, keys in TRAIN_KINDS.items()
+                     if any(x in e.key for x in keys)), "other")
+        by_kind[kind] = by_kind.get(kind, 0.0) + ms
+        top.append((ms, e.count, e.key[:90]))
+    top.sort(reverse=True)
+    busy = sum(by_kind.values())
+    return {"result": result, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "idle_share": 1 - busy / (wall * 1e3),
+            "device_ms_by_kind": by_kind, "top_kernels_ms_count": top[:15]}
+
+
+PER_HEAD_GRADS = ("A_log", "dt_bias")
+
+
+def train_card_vs_cpu(dtype_name, seed=1, S=300):
+    """Phase 14 (c): one ``train_step`` of the full-width model cut to 6
+    Mamba2 blocks + the shared block, B = 1, on the card against the plain
+    path on the CPU with the same weights and batch: the loss and every
+    gradient (each side's ``forward_train`` then ``torch.autograd.grad``,
+    what the step computes, before the step); then every parameter after
+    the card's AdamW step against the CPU's AdamW fed the card's gradients
+    (fed its own, an element whose gradient is ~0 may step either way by a
+    sign the tolerance cannot hold).  Tolerances are phase 10's: f32 1e-3
+    of each element plus 1e-3 of the tensor's largest, bf16 3e-2 of each;
+    in bf16 the per-head gradients (``A_log``, ``dt_bias``) are instead
+    held to a relative L2 error of 0.1.  They are sums over the tokens of
+    terms rounded to bf16 on the way (``dA`` and ``dX``, as the reference
+    rounds ``Adt`` and ``X``); where a sum cancels, card and CPU differ by
+    more than 3e-2 of the tensor's largest element (``A_log``: 1.15e-6
+    against 7.55e-7 allowed, one element in 80), while the relative L2
+    error stays at 3.1-3.4 % and the float32 run agrees to 2.5e-7
+    everywhere."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import host_batch
+    from repro_torch.models import decayed, forward_train, init_params
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.runtime import make_train_step
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=6, dtype=dtype_name,
+                              remat="none")
+    card = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+    cpu = init_params(cfg, None, device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    batch = {k: torch.as_tensor(v) for k, v in
+             host_batch(cfg, S, 1, 1, seed=seed).items()}
+    card_batch = {k: v.cuda() for k, v in batch.items()}
+    sides = {}
+    for side, model, bt in (("card", card, card_batch), ("cpu", cpu, batch)):
+        named = dict(model.named_parameters())
+        loss, _ = forward_train(model, cfg, bt)
+        sides[side] = (loss.detach(), dict(zip(named, torch.autograd.grad(
+            loss, list(named.values())))))
+    step_fn = make_train_step(cfg, peak_lr=1e-3, warmup_steps=1,
+                              total_steps=10)
+    m = step_fn(card, adamw_init(dict(card.named_parameters())), card_batch,
+                1)
+    worst = {}
+
+    def close(what, a, b):
+        a, b = a.detach().float().cpu(), b.detach().float()
+        scale = float(b.abs().max())
+        rel_l2 = float(torch.linalg.vector_norm(a - b)
+                       / torch.linalg.vector_norm(b).clamp_min(1e-30))
+        tol = 1e-3 if dtype_name == "float32" else 3e-2
+        if dtype_name != "float32" and what.startswith("grad") \
+                and what.rsplit(".", 1)[-1] in PER_HEAD_GRADS:
+            if rel_l2 > 0.1:
+                raise AssertionError(f"{dtype_name} {what}: relative L2 "
+                                     f"{rel_l2:.4f} > 0.1")
+        else:
+            torch.testing.assert_close(
+                a, b, rtol=tol, atol=tol * scale,
+                msg=lambda x: f"{dtype_name} {what}: {x}")
+        worst[what] = (float((a - b).abs().max()), scale, rel_l2)
+
+    card_grads = sides["card"][1]
+    loss, grads = sides["cpu"]
+    close("loss", sides["card"][0], loss)
+    close("loss after the step", m["loss"], loss)
+    for n, g in grads.items():
+        close(f"grad {n}", card_grads[n], g)
+    named = dict(cpu.named_parameters())
+    adamw_update({n: g.cpu() for n, g in card_grads.items()},
+                 adamw_init(named), named, lr=m["lr"],
+                 decay=decayed(cfg, named))
+    for n, p in card.named_parameters():
+        close(f"param {n}", p, named[n])
+    return worst
+
+
+def train_full(seq=2048, steps=8):
+    """Phase 14 (d), first part: ``launch.train.train`` of zamba2-2.7b at
+    full width and depth, ``remat="none"`` as the reference's ``train``
+    sets it; the launch counters are set to 0 just before and read just
+    after.  Returns its record; raises unless every loss is finite and
+    every step launched exactly one ``ssd`` and ``ssd_bwd`` per Mamba2
+    block and one ``flash_attention`` and ``flash_attention_bwd`` per
+    shared-block application."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.launch.train import train
+    cfg = get_config(ARCH)
+    for o in (sops, fops):
+        o.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with TrainSteps(profile_at=steps - 1) as rec:
+        out = train(ARCH, smoke=False, seq=seq, batch=1, steps=steps,
+                    monitor=True, log_every=1)
+    launches = {**sops.LAUNCHES, **fops.LAUNCHES}
+    n_ssd = cfg.n_layers
+    n_attn = cfg.n_layers // cfg.shared_attn_every
+    want = {"ssd": n_ssd, "ssd_bwd": n_ssd, "flash_attention": n_attn,
+            "flash_attention_bwd": n_attn}
+    for i, got in enumerate(rec.launches):
+        if got != want:
+            raise AssertionError(f"train step {i} launched {got}, want "
+                                 f"{want}")
+    if len(rec.launches) != steps or out["status"] != "done":
+        raise AssertionError(f"train ran {len(rec.launches)} steps: {out}")
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"non-finite loss {out['losses']}")
+    step_s = float(np.median(out["step_s"][1:]))
+    prof = rec.profile
+    prof.pop("result", None)
+    return {"seq": seq, "batch": 1, "steps": steps, "losses": out["losses"],
+            "step_s": out["step_s"], "median_step_s": step_s,
+            "tokens_per_s": seq / step_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "rss_trace_gb": out.get("rss_trace_gb"),
+            "launches": launches, "launches_per_step": want,
+            "profile_last_step": prof}
+
+
+def train_remat(batch=2, seq=2048, steps=3):
+    """Phase 14 (d), second part: ``make_train_step`` with the config's own
+    ``remat="full"`` at ``batch`` x ``seq``: each super-layer runs forward
+    again in the backward, so the forward kernels launch twice a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import host_batch
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import make_train_step
+    cfg = get_config(ARCH)
+    assert cfg.remat == "full"
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw_init(dict(model.named_parameters()))
+    step_fn = make_train_step(cfg, total_steps=steps)
+    n_ssd = cfg.n_layers
+    n_attn = cfg.n_layers // cfg.shared_attn_every
+    want = {"ssd": 2 * n_ssd, "ssd_bwd": n_ssd,
+            "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+    torch.cuda.reset_peak_memory_stats()
+    secs, losses = [], []
+    for step in range(steps):
+        bt = {k: torch.as_tensor(v, device="cuda") for k, v in
+              host_batch(cfg, seq, batch, step).items()}
+        for o in (sops, fops):
+            o.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step_fn(model, opt, bt, step)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+        got = {**sops.LAUNCHES, **fops.LAUNCHES}
+        if got != want:
+            raise AssertionError(f"remat step {step} launched {got}, want "
+                                 f"{want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite remat loss {losses}")
+    return {"batch": batch, "seq": seq, "steps": steps, "losses": losses,
+            "step_s": secs, "tokens_per_s": batch * seq
+            / float(np.median(secs[1:])),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_per_step": want}
+
+
+TRAIN_CKPT = os.path.join(ROOT, "build", "train_ckpt_smoke")
+
+
+def train_fault_tolerance():
+    """Phase 14 (e): zamba2-smoke on the card with checkpoints every 3
+    steps, killed at step 5 and resumed from step 3: the resumed losses are
+    bitwise those of an uninterrupted run."""
+    from repro_torch.launch.train import train
+    kw = dict(steps=8, seq=64, batch=2, ckpt_every=3, monitor=False)
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    full = train("zamba2-2.7b", **kw)
+    killed = train("zamba2-2.7b", ckpt_dir=TRAIN_CKPT, kill_at_step=5, **kw)
+    resumed = train("zamba2-2.7b", ckpt_dir=TRAIN_CKPT, resume=True, **kw)
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    if killed["losses"] != full["losses"][:5] \
+            or resumed["losses"] != full["losses"][3:]:
+        raise AssertionError(f"resumed losses {resumed['losses']} (killed "
+                             f"{killed['losses']}) vs uninterrupted "
+                             f"{full['losses']}")
+    return {"losses": full["losses"], "killed_at": killed["step"],
+            "resumed_from": 3}
+
+
+def bwd_kernel_timings(launches, err):
+    """Phase 14 (f): both backward kernels at the 1 x 2048 training shapes,
+    bf16, beside their plain versions, their bounds and (attention) the
+    backward of ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    cfg = get_config(ARCH)
+    Bsz, S = 1, 2048
+    rng = np.random.default_rng(6)
+    bf = torch.bfloat16
+    out = []
+
+    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v, _, _ = flash_case(rng, Bsz, S, S, H, K, hd, bf)
+    o, lse = fops._forward(q, k, v, True, None, with_lse=True)
+    do = torch.as_tensor(rng.standard_normal(q.shape), dtype=torch.float32,
+                         device="cuda").to(bf)
+    got = fops.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+    want = fops.ref.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+    torch.cuda.synchronize()
+    for g, w, t in zip(got, want, "qkv"):
+        _bwd_close(g, w, bf, f"flash_attention_bwd d{t} at the training "
+                   f"shape", err, "flash_attention_bwd")
+    del got, want
+    ms = time_ms(lambda: fops.flash_attention_bwd(q, k, v, o, do, lse,
+                                                  causal=True))
+    plain_ms = time_ms(lambda: fops.ref.flash_attention_bwd(
+        q, k, v, o, do, lse, causal=True), reps=5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).backward(
+            dot)
+    lib_ms = time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd)
+    # q, k, v, o, dO read once and dq, dk, dv written once (bf16), lse
+    # read; products: 2.5x the forward's over the causal pairs (five
+    # products of the forward's size against its two)
+    nbytes = 8 * Bsz * S * H * hd * 2 + Bsz * H * S * 4
+    nops = int(2.5 * Bsz * H * (S * (S + 1) // 2) * 4 * hd)
+    out.append(_entry("flash_attention_bwd", launches, err, ms, plain_ms,
+                      lib_ms, nbytes, nops,
+                      f"causal backward, q/k/v/o/dO ({Bsz}, {S}, {H}, {hd}) "
+                      f"bf16; library = SDPA forward+backward minus forward"))
+    del q, k, v, o, do, qt, kt, vt, dot
+
+    Hs, P, G, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_groups, \
+        cfg.ssm_state
+    X, A, Bm, Cm, chunk = ssd_case(rng, Bsz, S, Hs, P, G, N, cfg.ssm_chunk,
+                                   bf)
+    dY = torch.as_tensor(rng.standard_normal(X.shape), dtype=torch.float32,
+                         device="cuda").to(bf)
+    got = sops.ssd_bwd(X, A, Bm, Cm, chunk, dY)
+    want = sops.ref.ssd_bwd(X, A, Bm, Cm, chunk, dY)
+    torch.cuda.synchronize()
+    for g, w, t in zip(got, want, ("X", "A", "Bm", "Cm")):
+        _bwd_close(g, w, bf, f"ssd_bwd d{t} at the training shape", err,
+                   "ssd_bwd")
+    del got, want
+    ms = time_ms(lambda: sops.ssd_bwd(X, A, Bm, Cm, chunk, dY))
+    plain_ms = time_ms(lambda: sops.ref.ssd_bwd(X, A, Bm, Cm, chunk, dY),
+                       reps=5)
+    # x, a, B, C, dY read once, dx, da, dB, dC written once (bf16); the
+    # products: twice the forward's in the fixed 64-row form (each forward
+    # product has two gradient products); scratch counts against the time
+    nbytes = (3 * Bsz * S * Hs * P + 2 * Bsz * S * Hs
+              + 4 * Bsz * S * G * N) * 2
+    T = 64
+    nops = 2 * Bsz * Hs * -(-S // T) * (T * (T + 1) * (N + P) + 4 * T * P * N)
+    out.append(_entry("ssd_bwd", launches, err, ms, plain_ms, None, nbytes,
+                      nops, f"backward scan, x/dY ({Bsz}, {S}, {Hs}, {P}), "
+                            f"G={G} N={N} bf16"))
+    return out
+
+
+def training(kernels, err, built):
+    """Phase 14 (see the module docstring); appends the backward kernels'
+    records to ``kernels``."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    for name, src in (("ssd", sops.SOURCE), ("flash_attention", fops.SOURCE)):
+        log(f"phase 14: {name} backward kernels (registers, [spill store, "
+            f"spill load] bytes): " + json.dumps(kernel_report(
+                src, built[name][0], keep=lambda n: "bwd" in n)))
+    flash, ssd = bwd_parity_cases()
+    check_bwd_kernels(flash, ssd, err)
+    log(f"phase 14: backward kernel == plain == autograd of the plain "
+        f"forward on {len(flash)} flash_attention and {len(ssd)} ssd cases "
+        f"(f32 1e-4, bf16 2e-2 of element and tensor scale), max abs err "
+        f"flash_attention_bwd {err['flash_attention_bwd']:.3g} ssd_bwd "
+        f"{err['ssd_bwd']:.3g}")
+    del flash, ssd
+    for dtype_name in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        worst = train_card_vs_cpu(dtype_name)
+        diff = max(d for d, _, _ in worst.values())
+        rel = max(r for _, _, r in worst.values())
+        n_grads = sum(k.startswith("grad") for k in worst)
+        per_head = max(r for k, (_, _, r) in worst.items()
+                       if k.startswith("grad")
+                       and k.rsplit(".", 1)[-1] in PER_HEAD_GRADS)
+        log(f"phase 14: {ARCH} 6 Mamba2 blocks + shared block, {dtype_name},"
+            f" train_step card == cpu: loss, {n_grads}"
+            f" gradients and parameters after AdamW; max abs diff {diff:.3g},"
+            f" max relative L2 {rel:.3g} (per-head gradients {per_head:.3g})"
+            f" ({time.perf_counter() - t0:.1f} s); loss (diff, value, rel)"
+            f" {worst['loss']}")
+    torch.cuda.empty_cache()
+    full = train_full()
+    prof = full["profile_last_step"]
+    log(f"phase 14: {ARCH} launch.train.train 1 x 2048, remat none: "
+        f"{full['median_step_s']:.4f} s per step (median after the first), "
+        f"{full['tokens_per_s']:.1f} tokens/s, peak "
+        f"{full['peak_gb']:.2f} GB; launches per step "
+        f"{full['launches_per_step']}; losses {full['losses']}")
+    log("phase 14: profiled last step " + json.dumps(prof))
+    torch.cuda.empty_cache()
+    rem = train_remat()
+    log(f"phase 14: {ARCH} make_train_step remat full 2 x 2048: step s "
+        f"{[round(x, 4) for x in rem['step_s']]}, {rem['tokens_per_s']:.1f} "
+        f"tokens/s, peak {rem['peak_gb']:.2f} GB; launches per step "
+        f"{rem['launches_per_step']}; losses {rem['losses']}")
+    torch.cuda.empty_cache()
+    ft = train_fault_tolerance()
+    log(f"phase 14: zamba2-smoke killed at step {ft['killed_at']}, resumed "
+        f"from step {ft['resumed_from']}: losses bitwise the uninterrupted "
+        f"run's {ft['losses']}")
+    bwd = bwd_kernel_timings(full["launches"], err)
+    for k in bwd:
+        log(f"phase 14: {k['name']} {k['ms']:.4f} ms (plain "
+            f"{k['plain_ms']:.4f}, library {k['library_ms']}, bound "
+            f"{k['bound_ms']:.4f} by {k['bound_by']})")
+    for k in kernels:
+        if k["name"] in ("ssd", "flash_attention"):
+            k["train_launches"] = full["launches"][k["name"]]
+    kernels += bwd
+    log("phase 14: records " + json.dumps({"train": full, "remat": rem,
+                                           "fault_tolerance": ft}))
+
+
+def train_bench():
+    """Phase 14 alone on the card (with its builds), for bring-up."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    log(device_line())
+    built = build.build_all([sops.SOURCE, fops.SOURCE])
+    kernels = []
+    err = dict.fromkeys(list(REPLACES), 0.0)
+    training(kernels, err, built)
+    print(json.dumps({"kernels": kernels}), flush=True)
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1848,6 +2391,11 @@ def main() -> int:
         f"{sv['plain_ms']:.4f}, bound {sv['bound_ms']:.5f} by "
         f"{sv['bound_by']}) over {sv['groups']} "
         f"({time.perf_counter() - t0:.1f} s) " + json.dumps(rec))
+
+    # 14. training on the card
+    t0 = time.perf_counter()
+    training(kernels, err, built)
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,10 @@
-"""GQA attention forward: the prefill kernel of every attention block."""
+"""GQA attention: the prefill and training kernel of every attention block,
+and its backward."""
 
-from repro_torch.kernels.flash_attention.ops import LAUNCHES, flash_attention
+from repro_torch.kernels.flash_attention.ops import (
+    LAUNCHES,
+    flash_attention,
+    flash_attention_bwd,
+)
 
-__all__ = ["LAUNCHES", "flash_attention"]
+__all__ = ["LAUNCHES", "flash_attention", "flash_attention_bwd"]

@@ -93,8 +93,9 @@ size_t smem_bytes(int hd) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
-              int H, int K, int hd, int causal, int window, float scale) {
+              const T* __restrict__ v, T* __restrict__ out,
+              float* __restrict__ lse, int Sq, int Skv, int H, int K, int hd,
+              int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int ldq = hd + 1;
   const int ldp = kBk + 1;
@@ -223,6 +224,8 @@ __global__ void __launch_bounds__(kThreads)
     const int s = q0 + ty + 16 * i;
     if (s >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * Sq + s] = m[i] + logf(denom);
     T* row = out + (((size_t)b * Sq + s) * H + h) * hd;
 #pragma unroll
     for (int j = 0; j < kHdCols; ++j) {
@@ -233,9 +236,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Skv, int H, int K, int hd, int causal, int window,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Skv, int H, int K, int hd,
+           int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes(hd);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -243,8 +246,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   dim3 grid((Sq + kBq - 1) / kBq, H, B);
   flash_fwd<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Skv, H, K, hd,
-      causal, window, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, Sq, Skv, H, K,
+      hd, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -261,6 +264,7 @@ constexpr int kConsumers = 256;             // two warpgroups of 64 rows
 constexpr int kThreads = kConsumers + 32;   // and one producer warp
 constexpr int kQRegion = kBq * kRowBytes;   // 64 columns x 128 rows: 16 KB
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Keys per K / V tile for a head dim rounded to HD: the largest tile whose
 // scores (BK / 2 floats a thread), bf16 P (BK / 4 words) and output
@@ -384,8 +388,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ out, int Sq, int Skv, int H,
-                   int K, int hd, int causal, int window, float scale_log2) {
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   int Sq, int Skv, int H, int K, int hd, int causal,
+                   int window, float scale_log2) {
   constexpr int kReg = (HD + kRegionCols - 1) / kRegionCols;
   constexpr int kQTile = kReg * kQRegion;
   constexpr int kKvRegion = BK * kRowBytes;
@@ -534,6 +539,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     l1 += __shfl_xor_sync(0xffffffffu, l1, d);
   }
   const float inv[2] = {1.f / fmaxf(l0, 1e-30f), 1.f / fmaxf(l1, 1e-30f)};
+  if (lse != nullptr && t4 == 0) {
+    // the natural log-sum-exp of the scaled scores: m is in the log2 domain
+    const float m[2] = {r.m0, r.m1}, l[2] = {l0, l1};
+    for (int i = 0; i < 2; ++i)
+      if (row0 + 8 * i < Sq)
+        lse[((size_t)b * H + h) * Sq + row0 + 8 * i] =
+            (m[i] + log2f(fmaxf(l[i], 1e-30f))) * kLn2;
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qp = row0 + 8 * r;
@@ -550,9 +563,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 template <int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
-              int Sq, int Skv, int H, int K, int hd, int causal, int window,
-              float scale, cudaStream_t stream) {
+int launch_hd(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int Sq, int Skv, int H, int K, int hd,
+              int causal, int window, float scale, cudaStream_t stream) {
   // 4-d maps (hd, heads, S, B): a tile's rows are heads * hd apart in the
   // model layout, and TMA zero-fills the tails of hd and S
   constexpr int BK = keys_per_tile(HD);
@@ -577,18 +590,18 @@ int launch_hd(const void* q, const void* k, const void* v, void* out, int B,
   if (err) return err;
   dim3 grid((Sq + kBq - 1) / kBq, H, B);
   flash_fwd_bf16<HD, BK><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Skv, H, K, hd, causal,
-      window, scale * kLog2e);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, H, K, hd,
+      causal, window, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Skv, int H, int K, int hd, int causal, int window,
-           float scale, cudaStream_t stream) {
-#define KSP_HD(n)                                                          \
-  case n:                                                                  \
-    return launch_hd<n>(q, k, v, out, B, Sq, Skv, H, K, hd, causal, window, \
-                        scale, stream);
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int Sq, int Skv, int H, int K, int hd,
+           int causal, int window, float scale, cudaStream_t stream) {
+#define KSP_HD(n)                                                         \
+  case n:                                                                 \
+    return launch_hd<n>(q, k, v, out, lse, B, Sq, Skv, H, K, hd, causal,  \
+                        window, scale, stream);
   switch (round_up(hd, 16)) {
     KSP_HD(16) KSP_HD(32) KSP_HD(48) KSP_HD(64)
     KSP_HD(80) KSP_HD(96) KSP_HD(112) KSP_HD(128)
@@ -599,26 +612,421 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace fa3
 
+// --------------------------------------------------------------- backward
+//
+// The backward of both instances (no Pallas counterpart: the reference
+// trains through the XLA form models/attention.py::chunked_gqa_attention
+// and JAX's autodiff).  From the saved q, k, v, the output o, its gradient
+// dO and the forward's row log-sum-exp lse (B, H, Sq) float32, with
+// P = exp(scale q.k - lse) (zero where masked):
+//   D  = rowsum(dO o O)                                  (flash_bwd_dot)
+//   dS = P o (dO V^T - D), zero where masked
+//   dV = P^T dO,  dK = scale dS^T Q                       (flash_bwd_dkdv)
+//   dQ = scale dS K                                       (flash_bwd_dq)
+// A row that sees no key (a window past the end of the keys: q >=
+// Skv + window - 1) averages V with weights 1 / Skv in the plain version,
+// which an lse of -1e30 cannot express; its P is set to 1 / Skv directly,
+// and its dS is zero like every masked entry.
+//
+// Bound: operations.  The two passes redo the forward's q.k twice and do
+// five more products of the same size (dO.v twice, P^T dO, dS^T Q, dS K):
+// 3.5x the forward's products on the CUDA cores in float32, from operands
+// of either dtype.  A simple design first, right before fast: one block of
+// 256 threads per 64-key tile (dK, dV) or 64-row query tile (dQ), tiles
+// staged in shared memory as float32 with odd row strides, each thread
+// owning a 4 x 4 block of the score tile and 4 rows x hd/16 columns of its
+// accumulators, as the float32 forward.  The dK/dV block walks the G query
+// heads of its KV head and the query tiles that can see its keys (and the
+// key-less tail rows), so every sum is taken by one block in a fixed
+// order: no atomics, and the gradients do not depend on scheduling.  In
+// the bf16 instance P is rounded to bf16 before P^T dO, as the forward
+// rounds it before P V (models/attention.py:82).
+namespace fbwd {
+
+constexpr int kB = 64;         // query rows per q tile, keys per KV tile
+constexpr int kThreads = 256;  // 16 x 16: ty picks rows, tx picks columns
+constexpr int kHdCols = kMaxHd / 16;
+
+__device__ __forceinline__ float f32(float x) { return x; }
+__device__ __forceinline__ float f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+// P as the forward's P.V used it: bf16 in the bf16 instance
+__device__ __forceinline__ float like(float x, const float*) { return x; }
+__device__ __forceinline__ float like(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+struct Mask {
+  int Sq, Skv, causal, window, dead;  // rows >= dead see no key
+  __device__ __forceinline__ bool ok(int qp, int kp) const {
+    bool r = qp < Sq && kp < Skv;
+    if (causal) r = r && kp <= qp;
+    if (window > 0) r = r && kp > qp - window;
+    return r;
+  }
+};
+
+// rows [r0, r0 + 64) of a (B, S, heads, hd) tensor at (b, head) into a
+// 64 x ld float32 tile, times mul; rows past S read as zeros
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, int ld,
+                                          const T* __restrict__ src, int b,
+                                          int r0, int S, int heads, int head,
+                                          int hd, float mul) {
+  for (int i = threadIdx.x; i < kB * hd; i += kThreads) {
+    const int r = i / hd, d = i % hd, s = r0 + r;
+    dst[r * ld + d] =
+        s < S ? f32(src[(((size_t)b * S + s) * heads + head) * hd + d]) * mul
+              : 0.f;
+  }
+}
+
+// acc[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d] over two 64 x ld tiles
+__device__ __forceinline__ void tile_dots(float (&acc)[4][4],
+                                          const float* A, const float* Bt,
+                                          int ld, int hd, int tx, int ty) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int d = 0; d < hd; ++d) {
+    float a[4], bb[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * ld + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bb[j] = Bt[(tx + 16 * j) * ld + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+  }
+}
+
+// D[b, h, q] = sum_d dO o O: one warp per (b, q, h) row
+template <typename T>
+__global__ void flash_bwd_dot(const T* __restrict__ o,
+                              const T* __restrict__ dout,
+                              float* __restrict__ D, int rows, int Sq, int H,
+                              int hd) {
+  const int row = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  float s = 0.f;
+  for (int d = lane; d < hd; d += 32)
+    s = fmaf(f32(o[(size_t)row * hd + d]), f32(dout[(size_t)row * hd + d]),
+             s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) {
+    const int h = row % H, q = (row / H) % Sq, b = row / (H * Sq);
+    D[((size_t)b * H + h) * Sq + q] = s;
+  }
+}
+
+size_t dkdv_smem(int hd) {
+  return sizeof(float) * (4 * (size_t)kB * (hd + 1) +
+                          2 * (size_t)kB * (kB + 1) + 2 * kB);
+}
+
+// dK and dV of keys [k0, k0 + 64) of KV head kvh: grid (key tiles, K, B)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ D, T* __restrict__ dk,
+                   T* __restrict__ dv, Mask mk, int H, int K, int hd,
+                   float scale) {
+  extern __shared__ float smem[];
+  const int ld = hd + 1, ldp = kB + 1;
+  float* Ks = smem;             // kB x ld
+  float* Vs = Ks + kB * ld;     // kB x ld
+  float* Qs = Vs + kB * ld;     // kB x ld, scaled
+  float* dOs = Qs + kB * ld;    // kB x ld
+  float* Ps = dOs + kB * ld;    // kB x ldp  P[q][key]
+  float* dSs = Ps + kB * ldp;   // kB x ldp  dS[q][key]
+  float* lse_s = dSs + kB * ldp;
+  float* D_s = lse_s + kB;
+
+  const int k0 = blockIdx.x * kB;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / K;
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const float inv_skv = 1.f / mk.Skv;
+
+  load_tile(Ks, ld, k, b, k0, mk.Skv, K, kvh, hd, 1.f);
+  load_tile(Vs, ld, v, b, k0, mk.Skv, K, kvh, hd, 1.f);
+  float adk[4][kHdCols], adv[4][kHdCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kHdCols; ++j) adk[i][j] = adv[i][j] = 0.f;
+
+  // query rows that see these keys: [lo, hi), and the key-less tail
+  const int lo = mk.causal ? k0 : 0;
+  const int hi = mk.window > 0 ? min(mk.Sq, k0 + kB - 1 + mk.window) : mk.Sq;
+  const int n_qt = (mk.Sq + kB - 1) / kB;
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const size_t rowbase = ((size_t)b * H + h) * mk.Sq;
+    for (int t = lo / kB; t < n_qt; ++t) {
+      const int q0 = t * kB;
+      if (q0 >= hi && q0 + kB <= mk.dead) continue;
+      __syncthreads();  // the previous tile's reads are done
+      load_tile(Qs, ld, q, b, q0, mk.Sq, H, h, hd, scale);
+      load_tile(dOs, ld, dout, b, q0, mk.Sq, H, h, hd, 1.f);
+      if (tid < kB) {
+        const bool in = q0 + tid < mk.Sq;
+        lse_s[tid] = in ? lse[rowbase + q0 + tid] : 0.f;
+        D_s[tid] = in ? D[rowbase + q0 + tid] : 0.f;
+      }
+      __syncthreads();
+      float sc[4][4], dp[4][4];
+      tile_dots(sc, Qs, Ks, ld, hd, tx, ty);   // rows q, columns keys
+      tile_dots(dp, dOs, Vs, ld, hd, tx, ty);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = ty + 16 * i, qp = q0 + r;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = tx + 16 * j, kp = k0 + c;
+          const bool ok = mk.ok(qp, kp);
+          const bool dead = qp < mk.Sq && kp < mk.Skv && qp >= mk.dead;
+          const float p = dead ? inv_skv : ok ? expf(sc[i][j] - lse_s[r])
+                                              : 0.f;
+          Ps[r * ldp + c] = like(p, q);
+          dSs[r * ldp + c] = ok ? p * (dp[i][j] - D_s[r]) : 0.f;
+        }
+      }
+      __syncthreads();
+      // dV[key][d] += P[q][key] dO[q][d]; dK[key][d] += dS[q][key] Q[q][d]
+      for (int c = 0; c < kB; ++c) {
+        float pa[4], sa[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pa[i] = Ps[c * ldp + ty + 16 * i];
+          sa[i] = dSs[c * ldp + ty + 16 * i];
+        }
+#pragma unroll
+        for (int j = 0; j < kHdCols; ++j) {
+          const int d = tx + 16 * j;
+          if (d < hd) {
+            const float o_ = dOs[c * ld + d], q_ = Qs[c * ld + d];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              adv[i][j] = fmaf(pa[i], o_, adv[i][j]);
+              adk[i][j] = fmaf(sa[i], q_, adk[i][j]);
+            }
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = k0 + ty + 16 * i;
+    if (s >= mk.Skv) continue;
+    const size_t off = (((size_t)b * mk.Skv + s) * K + kvh) * hd;
+#pragma unroll
+    for (int j = 0; j < kHdCols; ++j) {
+      const int d = tx + 16 * j;
+      if (d < hd) {
+        put(dk + off + d, adk[i][j]);  // Qs holds scale q: dK = dS^T (scale q)
+        put(dv + off + d, adv[i][j]);
+      }
+    }
+  }
+}
+
+size_t dq_smem(int hd) {
+  return sizeof(float) * (4 * (size_t)kB * (hd + 1) +
+                          (size_t)kB * (kB + 1) + 2 * kB);
+}
+
+// dQ of rows [q0, q0 + 64) of head h: grid (query tiles, H, B)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ D,
+                 T* __restrict__ dq, Mask mk, int H, int K, int hd,
+                 float scale) {
+  extern __shared__ float smem[];
+  const int ld = hd + 1, ldp = kB + 1;
+  float* Qs = smem;             // kB x ld, scaled
+  float* dOs = Qs + kB * ld;    // kB x ld
+  float* Ks = dOs + kB * ld;    // kB x ld
+  float* Vs = Ks + kB * ld;     // kB x ld
+  float* dSs = Vs + kB * ld;    // kB x ldp  dS[q][key]
+  float* lse_s = dSs + kB * ldp;
+  float* D_s = lse_s + kB;
+
+  const int q0 = blockIdx.x * kB;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / K);
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const size_t rowbase = ((size_t)b * H + h) * mk.Sq;
+
+  load_tile(Qs, ld, q, b, q0, mk.Sq, H, h, hd, scale);
+  load_tile(dOs, ld, dout, b, q0, mk.Sq, H, h, hd, 1.f);
+  if (tid < kB) {
+    const bool in = q0 + tid < mk.Sq;
+    lse_s[tid] = in ? lse[rowbase + q0 + tid] : 0.f;
+    D_s[tid] = in ? D[rowbase + q0 + tid] : 0.f;
+  }
+  float adq[4][kHdCols];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < kHdCols; ++j) adq[i][j] = 0.f;
+
+  // KV tiles the block's rows can see
+  const int kv_end = mk.causal ? min(mk.Skv, q0 + kB) : mk.Skv;
+  const int t_end = (kv_end + kB - 1) / kB;
+  const int t_begin =
+      mk.window > 0 ? min(max(0, q0 - mk.window + 1) / kB, t_end) : 0;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int k0 = t * kB;
+    __syncthreads();  // the previous tile's reads are done
+    load_tile(Ks, ld, k, b, k0, mk.Skv, K, kvh, hd, 1.f);
+    load_tile(Vs, ld, v, b, k0, mk.Skv, K, kvh, hd, 1.f);
+    __syncthreads();
+    float sc[4][4], dp[4][4];
+    tile_dots(sc, Qs, Ks, ld, hd, tx, ty);
+    tile_dots(dp, dOs, Vs, ld, hd, tx, ty);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i, qp = q0 + r;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = tx + 16 * j;
+        const bool ok = mk.ok(qp, k0 + c);
+        dSs[r * ldp + c] =
+            ok ? expf(sc[i][j] - lse_s[r]) * (dp[i][j] - D_s[r]) : 0.f;
+      }
+    }
+    __syncthreads();
+    // dQ[q][d] += dS[q][key] K[key][d]
+    for (int c = 0; c < kB; ++c) {
+      float sa[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sa[i] = dSs[(ty + 16 * i) * ldp + c];
+#pragma unroll
+      for (int j = 0; j < kHdCols; ++j) {
+        const int d = tx + 16 * j;
+        if (d < hd) {
+          const float k_ = Ks[c * ld + d];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) adq[i][j] = fmaf(sa[i], k_, adq[i][j]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = q0 + ty + 16 * i;
+    if (s >= mk.Sq) continue;
+    T* row = dq + (((size_t)b * mk.Sq + s) * H + h) * hd;
+#pragma unroll
+    for (int j = 0; j < kHdCols; ++j) {
+      const int d = tx + 16 * j;
+      if (d < hd) put(row + d, adq[i][j] * scale);
+    }
+  }
+}
+
+// Three launches on `stream`; D (B, H, Sq) float32 is the wrapper's scratch.
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* D, void* dq, void* dk,
+           void* dv, int B, int Sq, int Skv, int H, int K, int hd,
+           int causal, int window, float scale, cudaStream_t stream) {
+  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
+          *tv = static_cast<const T*>(v), *tdo = static_cast<const T*>(dout);
+  const int rows = B * Sq * H;
+  flash_bwd_dot<T><<<(rows + 7) / 8, 256, 0, stream>>>(
+      static_cast<const T*>(o), tdo, D, rows, Sq, H, hd);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const Mask mk{Sq, Skv, causal, window,
+                window > 0 ? Skv + window - 1 : 0x7fffffff};
+  size_t smem = dkdv_smem(hd);
+  err = cudaFuncSetAttribute(flash_bwd_dkdv<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkdv<T><<<dim3((Skv + kB - 1) / kB, K, B), kThreads, smem,
+                      stream>>>(tq, tk, tv, tdo, lse, D,
+                                static_cast<T*>(dk), static_cast<T*>(dv), mk,
+                                H, K, hd, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  smem = dq_smem(hd);
+  err = cudaFuncSetAttribute(flash_bwd_dq<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq<T><<<dim3((Sq + kB - 1) / kB, H, B), kThreads, smem,
+                    stream>>>(tq, tk, tv, tdo, lse, D, static_cast<T*>(dq),
+                              mk, H, K, hd, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fbwd
+
 extern "C" {
 
 // Returns cudaGetLastError() after the launch: nonzero means the launch was
 // refused (or a tensor map could not be encoded).  The wrapper (ops.py)
 // checks shapes, dtypes, hd <= 128, and for bf16 hd % 8 == 0 and 16-byte
-// aligned pointers (TMA's rules).
+// aligned pointers (TMA's rules).  lse (B, H, Sq) float32 may be null.
 int ksp_flash_attention_f32(const void* q, const void* k, const void* v,
-                            void* out, int B, int Sq, int Skv, int H, int K,
-                            int hd, int causal, int window, float scale,
-                            cudaStream_t stream) {
-  return launch<float>(q, k, v, out, B, Sq, Skv, H, K, hd, causal, window,
-                       scale, stream);
+                            void* out, void* lse, int B, int Sq, int Skv,
+                            int H, int K, int hd, int causal, int window,
+                            float scale, cudaStream_t stream) {
+  return launch<float>(q, k, v, out, static_cast<float*>(lse), B, Sq, Skv,
+                       H, K, hd, causal, window, scale, stream);
 }
 
 int ksp_flash_attention_bf16(const void* q, const void* k, const void* v,
-                             void* out, int B, int Sq, int Skv, int H, int K,
-                             int hd, int causal, int window, float scale,
-                             cudaStream_t stream) {
-  return fa3::launch(q, k, v, out, B, Sq, Skv, H, K, hd, causal, window,
-                     scale, stream);
+                             void* out, void* lse, int B, int Sq, int Skv,
+                             int H, int K, int hd, int causal, int window,
+                             float scale, cudaStream_t stream) {
+  return fa3::launch(q, k, v, out, static_cast<float*>(lse), B, Sq, Skv, H,
+                     K, hd, causal, window, scale, stream);
+}
+
+// The backward: dq, dk, dv in the inputs' dtype from q, k, v, o, dO and
+// the forward's lse; D (B, H, Sq) float32 is scratch.  Same checks.
+int ksp_flash_attention_bwd_f32(const void* q, const void* k, const void* v,
+                                const void* o, const void* dout,
+                                const void* lse, void* D, void* dq, void* dk,
+                                void* dv, int B, int Sq, int Skv, int H,
+                                int K, int hd, int causal, int window,
+                                float scale, cudaStream_t stream) {
+  return fbwd::launch<float>(q, k, v, o, dout, static_cast<const float*>(lse),
+                             static_cast<float*>(D), dq, dk, dv, B, Sq, Skv,
+                             H, K, hd, causal, window, scale, stream);
+}
+
+int ksp_flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
+                                 const void* o, const void* dout,
+                                 const void* lse, void* D, void* dq,
+                                 void* dk, void* dv, int B, int Sq, int Skv,
+                                 int H, int K, int hd, int causal, int window,
+                                 float scale, cudaStream_t stream) {
+  return fbwd::launch<__nv_bfloat16>(
+      q, k, v, o, dout, static_cast<const float*>(lse),
+      static_cast<float*>(D), dq, dk, dv, B, Sq, Skv, H, K, hd, causal,
+      window, scale, stream);
 }
 
 }  // extern "C"

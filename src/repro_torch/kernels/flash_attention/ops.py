@@ -21,6 +21,15 @@ The CUDA source has two instances, picked here by dtype:
 Both take the head dim as it is (hd <= 128, zamba2's 80 included), where
 the TPU wrapper pads it to 128, and mask ragged sequence tails themselves,
 so nothing is padded or copied.  One launch per call.
+
+Training: when autograd records (grad enabled and an input that requires
+grad), :func:`flash_attention` goes through a ``torch.autograd.Function``
+whose forward also has the kernel write the row log-sum-exp ``lse`` (a
+nullable output, left null on the serving path) and whose backward is
+:func:`flash_attention_bwd`: on CUDA the hand-written backward kernel
+(``csrc/flash_attention.cu``, namespace ``fbwd``, both dtypes on the CUDA
+cores), counted by ``LAUNCHES["flash_attention_bwd"]``; on the CPU
+``ref.flash_attention_bwd``.
 """
 
 from __future__ import annotations
@@ -34,22 +43,30 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ref
 
-__all__ = ["LAUNCHES", "SOURCE", "reset_launches", "flash_attention"]
+__all__ = ["LAUNCHES", "SOURCE", "reset_launches", "flash_attention",
+           "flash_attention_bwd"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MAX_HD = 128  # kMaxHd in csrc/flash_attention.cu
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# (q, k, v, out, B, Sq, Skv, H, K, hd, causal, window or 0, scale, stream)
-_ARGS = [_P] * 4 + [_I] * 8 + [_F, _P]
+# (q, k, v, out, lse or null, B, Sq, Skv, H, K, hd, causal, window or 0,
+#  scale, stream)
+_ARGS = [_P] * 5 + [_I] * 8 + [_F, _P]
+# (q, k, v, o, dout, lse, D, dq, dk, dv, B, Sq, Skv, H, K, hd, causal,
+#  window or 0, scale, stream)
+_BWD_ARGS = [_P] * 10 + [_I] * 8 + [_F, _P]
 SIGNATURES = {"ksp_flash_attention_f32": _ARGS,
-              "ksp_flash_attention_bf16": _ARGS}
+              "ksp_flash_attention_bf16": _ARGS,
+              "ksp_flash_attention_bwd_f32": _BWD_ARGS,
+              "ksp_flash_attention_bwd_bf16": _BWD_ARGS}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _check(q, k, v, window):
@@ -96,14 +113,84 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     All of one dtype (float32 or bfloat16), contiguous, on one device.
     Returns (B,Sq,H,hd) in q's dtype.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window, with_lse=False)[0]
+
+
+def _forward(q, k, v, causal, window, with_lse):
+    """``(out, lse or None)``: the kernel on CUDA, the plain version on the
+    CPU (which always computes ``lse``)."""
     B, Sq, Skv, H, K, hd = _check(q, k, v, window)
     if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal=causal, window=window)
+        if with_lse:
+            return ref.flash_attention_fwd(q, k, v, causal=causal,
+                                           window=window)
+        return ref.flash_attention(q, k, v, causal=causal,
+                                   window=window), None
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32,
+                      device=q.device) if with_lse else None
     lib = build.load(SOURCE, SIGNATURES)
     build.launch(lib, f"ksp_flash_attention_{_SUFFIX[q.dtype]}", q.device,
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  B, Sq, Skv, H, K, hd, int(causal), window or 0,
                  1.0 / hd ** 0.5)
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out, lse
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None):
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention` from the
+    saved ``q, k, v``, its output ``o``, the output's gradient ``do`` (same
+    shape, dtype and device as q, contiguous) and the forward's ``lse``
+    (B, H, Sq) float32: the backward kernel on CUDA, the plain version on
+    the CPU."""
+    B, Sq, Skv, H, K, hd = _check(q, k, v, window)
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous tensor like q")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous (B, H, Sq) float32 "
+                         f"tensor on {q.device}, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
+                                       window=window)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lib = build.load(SOURCE, SIGNATURES)
+    build.launch(lib, f"ksp_flash_attention_bwd_{_SUFFIX[q.dtype]}",
+                 q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 o.data_ptr(), do.data_ptr(), lse.data_ptr(), D.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 B, Sq, Skv, H, K, hd, int(causal), window or 0,
+                 1.0 / hd ** 0.5)
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` with its gradient: the forward kernel saves
+    ``lse``, the backward is :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _forward(q, k, v, causal, window, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         lse, causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None

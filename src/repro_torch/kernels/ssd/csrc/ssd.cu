@@ -797,6 +797,383 @@ int launch(const void* x, const void* a, const void* b, const void* c,
 
 }  // namespace ssd3
 
+// --------------------------------------------------------------- backward
+//
+// The backward of both instances (no Pallas counterpart: the reference
+// trains through the XLA form models/mamba2.py::ssd_chunked and JAX's
+// autodiff).  From x, a, B, C and dy (and the final state's gradient, or
+// zero) it gives dx, da, dB and dC in the inputs' dtype.  It chunks by
+// kBt = 32 rows, whatever the forward chunked by (the scan does not depend
+// on the chunk size), which keeps every tile of a chunk in shared memory
+// up to P = N = 128.  Per chunk, with cum = cumsum(a), e_j =
+// exp(cum_last - cum_j), L = exp(cum_i - cum_j) on the lower triangle
+// (evaluated there only: above it the exponent can overflow), the state
+// entering the chunk s and the gradient of the state leaving it ds:
+//   dx_j = sum_i ((C B^T) o L)_ij dy_i + e_j (ds B_j)
+//   dC_i = sum_j (dy_i.x_j) L_ij B_j + exp(cum_i) s^T dy_i
+//   dB_j = sum_i (dy_i.x_j) L_ij C_i + e_j ds^T x_j
+//   dcum from L (both indices), exp(cum_i) against s and the decays into
+//   the outgoing state; da = its reverse cumsum within the chunk.
+// Four kernels per call:
+//   1. ssd_bwd_states, grid (chunks, H, B): each chunk's own outgoing state
+//      x^T (B o e) and its own share of the incoming gradient
+//      sum_i exp(cum_i) dy_i (x) C_i, and cum_last, into float32 scratch;
+//   2. ssd_bwd_pass, a thread per (b, h, state element): the states
+//      entering each chunk (forward over the chunks) and the gradient of
+//      the state leaving each chunk (in reverse), in place;
+//   3. ssd_bwd_chunk, grid (chunks, H, B): every gradient of the chunk's
+//      rows; dB and dC per head into float32 scratch (B, S, H, N);
+//   4. ssd_bwd_group: dB and dC summed over the heads of each group in a
+//      fixed order (zamba2: 80 heads, one group).
+// Every sum is taken by one thread or one block in a fixed order: no
+// atomics, so the gradients do not depend on scheduling.
+//
+// Bound: memory, as the forward.  A simple design first, on the CUDA cores
+// in float32 from operands of either dtype.
+namespace sbwd {
+
+constexpr int kBt = 32;        // rows per chunk
+constexpr int kThreads = 256;  // 8 warps
+
+__device__ __forceinline__ float f32(float x) { return x; }
+__device__ __forceinline__ float f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// rows [s0, s0 + kBt) of a (B, S, heads, width) tensor at (b, head) into a
+// kBt x ld float32 tile; rows past S read as zeros
+template <typename T>
+__device__ __forceinline__ void load_rows(float* dst, int ld,
+                                          const T* __restrict__ src, int b,
+                                          int s0, int S, int heads, int head,
+                                          int width) {
+  for (int i = threadIdx.x; i < kBt * width; i += kThreads) {
+    const int r = i / width, c = i % width, s = s0 + r;
+    dst[r * ld + c] =
+        s < S ? f32(src[(((size_t)b * S + s) * heads + head) * width + c])
+              : 0.f;
+  }
+}
+
+// warp 0: cum = inclusive cumsum of a over the chunk's rows (zeros past
+// S), then exp(cum) and exp(cum_last - cum); returns cum_last in lane 31
+template <typename T>
+__device__ __forceinline__ void chunk_decays(const T* __restrict__ a, int b,
+                                             int s0, int S, int H, int h,
+                                             float* cum, float* ec,
+                                             float* wd, float* clast) {
+  const int lane = threadIdx.x;
+  float c = s0 + lane < S ? f32(a[((size_t)b * S + s0 + lane) * H + h]) : 0.f;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float up = __shfl_up_sync(0xffffffffu, c, o);
+    if (lane >= o) c += up;
+  }
+  const float cl = __shfl_sync(0xffffffffu, c, 31);
+  cum[lane] = c;
+  ec[lane] = expf(c);
+  wd[lane] = expf(cl - c);
+  if (lane == 31) *clast = cl;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ssd_bwd_states(const T* __restrict__ x, const T* __restrict__ a,
+                   const T* __restrict__ bm, const T* __restrict__ cm,
+                   const T* __restrict__ dy, float* __restrict__ states,
+                   float* __restrict__ dstates, float* __restrict__ clast,
+                   int S, int H, int P, int G, int N) {
+  extern __shared__ float smem[];
+  float* Xs = smem;             // kBt x P
+  float* dYs = Xs + kBt * P;    // kBt x P
+  float* Bs = dYs + kBt * P;    // kBt x N
+  float* Cs = Bs + kBt * N;     // kBt x N
+  float* cum = Cs + kBt * N;    // kBt
+  float* ec = cum + kBt;        // kBt  exp(cum_i)
+  float* wd = ec + kBt;         // kBt  exp(cum_last - cum_j)
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.x, g = h / (H / G), s0 = c * kBt;
+  load_rows(Xs, P, x, b, s0, S, H, h, P);
+  load_rows(dYs, P, dy, b, s0, S, H, h, P);
+  load_rows(Bs, N, bm, b, s0, S, G, g, N);
+  load_rows(Cs, N, cm, b, s0, S, G, g, N);
+  if (threadIdx.x < 32)
+    chunk_decays(a, b, s0, S, H, h, cum, ec, wd,
+                 clast + ((size_t)b * H + h) * nc + c);
+  __syncthreads();
+  const size_t off = (((size_t)b * nc + c) * H + h) * P * N;
+  for (int e = threadIdx.x; e < P * N; e += kThreads) {
+    const int p = e / N, n = e % N;
+    float st = 0.f, gr = 0.f;
+    for (int r = 0; r < kBt; ++r) {
+      st = fmaf(wd[r] * Xs[r * P + p], Bs[r * N + n], st);
+      gr = fmaf(ec[r] * dYs[r * P + p], Cs[r * N + n], gr);
+    }
+    states[off + e] = st;
+    dstates[off + e] = gr;
+  }
+}
+
+// In place: states[c] <- the state entering chunk c; dstates[c] <- the
+// gradient of the state leaving chunk c (dfinal, or 0, for the last)
+__global__ void ssd_bwd_pass(float* __restrict__ states,
+                             float* __restrict__ dstates,
+                             const float* __restrict__ clast,
+                             const float* __restrict__ dfinal, int B, int H,
+                             int PN, int nc) {
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (size_t)B * H * PN) return;
+  const int e = t % PN, h = (t / PN) % H, b = t / ((size_t)PN * H);
+  const float* cl = clast + ((size_t)b * H + h) * nc;
+  float run = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    const size_t i = (((size_t)b * nc + c) * H + h) * PN + e;
+    const float own = states[i];
+    states[i] = run;
+    run = fmaf(run, expf(cl[c]), own);
+  }
+  run = dfinal != nullptr ? dfinal[((size_t)b * H + h) * PN + e] : 0.f;
+  for (int c = nc - 1; c >= 0; --c) {
+    const size_t i = (((size_t)b * nc + c) * H + h) * PN + e;
+    const float own = dstates[i];
+    dstates[i] = run;
+    run = fmaf(run, expf(cl[c]), own);
+  }
+}
+
+size_t chunk_smem(int P, int N) {
+  const size_t lp = P + 1, ln = N + 1;
+  return sizeof(float) * (2 * kBt * lp + 3 * kBt * ln + (size_t)P * ln +
+                          3 * kBt * (kBt + 1) + 9 * kBt + 16);
+}
+
+// sum over a warp's lanes in a fixed order
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    ssd_bwd_chunk(const T* __restrict__ x, const T* __restrict__ a,
+                  const T* __restrict__ bm, const T* __restrict__ cm,
+                  const T* __restrict__ dy, const float* __restrict__ states,
+                  const float* __restrict__ dstates, T* __restrict__ dx,
+                  T* __restrict__ da, float* __restrict__ dbh,
+                  float* __restrict__ dch, int S, int H, int P, int G,
+                  int N) {
+  extern __shared__ float smem[];
+  const int lp = P + 1, ln = N + 1, lt = kBt + 1;
+  float* Xs = smem;                 // kBt x lp
+  float* dYs = Xs + kBt * lp;       // kBt x lp
+  float* Bs = dYs + kBt * lp;       // kBt x ln
+  float* Cs = Bs + kBt * ln;        // kBt x ln
+  float* Wk = Cs + kBt * ln;        // kBt x ln  the state parts of dC, dB
+  float* Sb = Wk + kBt * ln;        // P x ln    entering state, then ds
+  float* Gm = Sb + P * ln;          // kBt x lt  (C B^T) o L
+  float* dGL = Gm + kBt * lt;       // kBt x lt  (dy x^T) o L
+  float* Tt = dGL + kBt * lt;       // kBt x lt  dGL o (C B^T)
+  float* cum = Tt + kBt * lt;
+  float* ec = cum + kBt;
+  float* wd = ec + kBt;
+  float* tr = wd + kBt;             // row sums of Tt
+  float* tc = tr + kBt;             // column sums of Tt
+  float* u = tc + kBt;
+  float* v = u + kBt;
+  float* red = v + kBt;             // 8 warp partials of <ds, s>
+  float* clast = red + 8;
+
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int nc = gridDim.x, g = h / (H / G), s0 = c * kBt;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const size_t soff = (((size_t)b * nc + c) * H + h) * P * N;
+  load_rows(Xs, lp, x, b, s0, S, H, h, P);
+  load_rows(dYs, lp, dy, b, s0, S, H, h, P);
+  load_rows(Bs, ln, bm, b, s0, S, G, g, N);
+  load_rows(Cs, ln, cm, b, s0, S, G, g, N);
+  for (int e = tid; e < P * N; e += kThreads)
+    Sb[(e / N) * ln + e % N] = states[soff + e];
+  if (tid < 32) chunk_decays(a, b, s0, S, H, h, cum, ec, wd, clast);
+  __syncthreads();
+
+  // phase 1 (Sb = the entering state s)
+  {
+    const int i = tid / 8;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = tid % 8 + 8 * q;
+      float cb = 0.f, dg = 0.f;
+      for (int n = 0; n < N; ++n)
+        cb = fmaf(Cs[i * ln + n], Bs[j * ln + n], cb);
+      for (int p = 0; p < P; ++p)
+        dg = fmaf(dYs[i * lp + p], Xs[j * lp + p], dg);
+      const float L = i >= j ? expf(cum[i] - cum[j]) : 0.f;
+      Gm[i * lt + j] = cb * L;
+      dGL[i * lt + j] = dg * L;
+      Tt[i * lt + j] = dg * L * cb;
+    }
+  }
+  for (int e = tid; e < kBt * N; e += kThreads) {
+    const int i = e / N, n = e % N;
+    float acc = 0.f;
+    for (int p = 0; p < P; ++p)
+      acc = fmaf(Sb[p * ln + n], dYs[i * lp + p], acc);
+    Wk[i * ln + n] = ec[i] * acc;
+  }
+  float wpart = 0.f;
+  for (int e = tid; e < P * N; e += kThreads)
+    wpart = fmaf(Sb[(e / N) * ln + e % N], dstates[soff + e], wpart);
+  wpart = warp_sum(wpart);
+  if (lane == 0) red[warp] = wpart;
+  __syncthreads();
+
+  if (tid < kBt) {
+    float sr = 0.f;
+    for (int j = 0; j < kBt; ++j) sr += Tt[tid * lt + j];
+    tr[tid] = sr;
+  } else if (tid < 2 * kBt) {
+    const int j = tid - kBt;
+    float sc = 0.f;
+    for (int i = 0; i < kBt; ++i) sc += Tt[i * lt + j];
+    tc[j] = sc;
+  }
+  for (int i = warp; i < kBt; i += 8) {
+    float acc = 0.f;
+    for (int n = lane; n < N; n += 32)
+      acc = fmaf(Cs[i * ln + n], Wk[i * ln + n], acc);
+    acc = warp_sum(acc);
+    if (lane == 0) u[i] = acc;
+  }
+  for (int e = tid; e < kBt * N; e += kThreads) {
+    const int i = e / N, n = e % N, s = s0 + i;
+    float acc = Wk[i * ln + n];
+    for (int j = 0; j <= i; ++j)
+      acc = fmaf(dGL[i * lt + j], Bs[j * ln + n], acc);
+    if (s < S) dch[(((size_t)b * S + s) * H + h) * N + n] = acc;
+  }
+  __syncthreads();
+
+  // phase 2 (Sb = ds, the gradient of the state leaving the chunk)
+  for (int e = tid; e < P * N; e += kThreads)
+    Sb[(e / N) * ln + e % N] = dstates[soff + e];
+  __syncthreads();
+  for (int e = tid; e < kBt * N; e += kThreads) {
+    const int j = e / N, n = e % N;
+    float acc = 0.f;
+    for (int p = 0; p < P; ++p)
+      acc = fmaf(Sb[p * ln + n], Xs[j * lp + p], acc);
+    Wk[j * ln + n] = wd[j] * acc;
+  }
+  for (int e = tid; e < kBt * P; e += kThreads) {
+    const int j = e / P, p = e % P, s = s0 + j;
+    float acc = 0.f, st = 0.f;
+    for (int i = j; i < kBt; ++i)
+      acc = fmaf(Gm[i * lt + j], dYs[i * lp + p], acc);
+    for (int n = 0; n < N; ++n) st = fmaf(Sb[p * ln + n], Bs[j * ln + n], st);
+    if (s < S) put(dx + (((size_t)b * S + s) * H + h) * P + p,
+                   fmaf(wd[j], st, acc));
+  }
+  __syncthreads();
+  for (int j = warp; j < kBt; j += 8) {
+    float acc = 0.f;
+    for (int n = lane; n < N; n += 32)
+      acc = fmaf(Bs[j * ln + n], Wk[j * ln + n], acc);
+    acc = warp_sum(acc);
+    if (lane == 0) v[j] = acc;
+  }
+  for (int e = tid; e < kBt * N; e += kThreads) {
+    const int j = e / N, n = e % N, s = s0 + j;
+    float acc = Wk[j * ln + n];
+    for (int i = j; i < kBt; ++i)
+      acc = fmaf(dGL[i * lt + j], Cs[i * ln + n], acc);
+    if (s < S) dbh[(((size_t)b * S + s) * H + h) * N + n] = acc;
+  }
+  __syncthreads();
+
+  // dcum, then da = its reverse cumsum (warp 0, a row per lane)
+  if (tid < 32) {
+    float w = 0.f;
+    for (int k = 0; k < 8; ++k) w += red[k];
+    const float vsum = warp_sum(v[lane]);
+    float d = tr[lane] - tc[lane] + u[lane] - v[lane];
+    if (lane == kBt - 1) d += expf(*clast) * w + vsum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float dn = __shfl_down_sync(0xffffffffu, d, o);
+      if (lane + o < 32) d += dn;
+    }
+    if (s0 + lane < S) put(da + ((size_t)b * S + s0 + lane) * H + h, d);
+  }
+}
+
+// dB, dC (B, S, G, N) = the per-head partials summed over each group's
+// heads in order
+template <typename T>
+__global__ void ssd_bwd_group(const float* __restrict__ dbh,
+                              const float* __restrict__ dch,
+                              T* __restrict__ db, T* __restrict__ dc,
+                              size_t total, int H, int G, int N) {
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const int n = t % N, g = (t / N) % G;
+  const size_t bs = t / ((size_t)N * G);
+  const int rep = H / G;
+  float sb = 0.f, sc = 0.f;
+  for (int r = 0; r < rep; ++r) {
+    const size_t i = (bs * H + (size_t)g * rep + r) * N + n;
+    sb += dbh[i];
+    sc += dch[i];
+  }
+  put(db + t, sb);
+  put(dc + t, sc);
+}
+
+template <typename T>
+int launch(const void* x, const void* a, const void* b, const void* c,
+           const void* dy, const void* dfinal, void* dx, void* da, void* db,
+           void* dc, float* states, float* dstates, float* clast,
+           float* dbh, float* dch, int B, int S, int H, int P, int G, int N,
+           cudaStream_t stream) {
+  const T *tx = static_cast<const T*>(x), *ta = static_cast<const T*>(a),
+          *tb = static_cast<const T*>(b), *tc = static_cast<const T*>(c),
+          *tdy = static_cast<const T*>(dy);
+  const int nc = (S + kBt - 1) / kBt;
+  const dim3 grid(nc, H, B);
+  size_t smem = sizeof(float) * (2 * kBt * (size_t)(P + N) + 3 * kBt);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_states<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ssd_bwd_states<T><<<grid, kThreads, smem, stream>>>(
+      tx, ta, tb, tc, tdy, states, dstates, clast, S, H, P, G, N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const size_t lanes = (size_t)B * H * P * N;
+  ssd_bwd_pass<<<(lanes + 255) / 256, 256, 0, stream>>>(
+      states, dstates, clast, static_cast<const float*>(dfinal), B, H, P * N,
+      nc);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  smem = chunk_smem(P, N);
+  err = cudaFuncSetAttribute(ssd_bwd_chunk<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  ssd_bwd_chunk<T><<<grid, kThreads, smem, stream>>>(
+      tx, ta, tb, tc, tdy, states, dstates, static_cast<T*>(dx),
+      static_cast<T*>(da), dbh, dch, S, H, P, G, N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const size_t total = (size_t)B * S * G * N;
+  ssd_bwd_group<T><<<(total + 255) / 256, 256, 0, stream>>>(
+      dbh, dch, static_cast<T*>(db), static_cast<T*>(dc), total, H, G, N);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sbwd
+
 extern "C" {
 
 // Returns cudaGetLastError() after the launch: nonzero means the launch was
@@ -817,6 +1194,35 @@ int ksp_ssd_bf16(const void* x, const void* a, const void* b, const void* c,
                  cudaStream_t stream) {
   return ssd3::launch(x, a, b, c, y, final_state, states, s_in, cum, B, S, H,
                       P, G, N, stream);
+}
+
+// The backward: dx, da, db, dc in the inputs' dtype from x, a, b, c, dy
+// and dfinal (B, H, P, N) float32 or null (zero).  Scratch from the
+// wrapper, all float32: states and dstates (B, ceil(S / 32), H, P, N),
+// clast (B, H, ceil(S / 32)), dbh and dch (B, S, H, N).  The wrapper checks
+// shapes, dtypes, G | H and P, N <= 128.
+int ksp_ssd_bwd_f32(const void* x, const void* a, const void* b,
+                    const void* c, const void* dy, const void* dfinal,
+                    void* dx, void* da, void* db, void* dc, void* states,
+                    void* dstates, void* clast, void* dbh, void* dch, int B,
+                    int S, int H, int P, int G, int N, cudaStream_t stream) {
+  return sbwd::launch<float>(
+      x, a, b, c, dy, dfinal, dx, da, db, dc, static_cast<float*>(states),
+      static_cast<float*>(dstates), static_cast<float*>(clast),
+      static_cast<float*>(dbh), static_cast<float*>(dch), B, S, H, P, G, N,
+      stream);
+}
+
+int ksp_ssd_bwd_bf16(const void* x, const void* a, const void* b,
+                     const void* c, const void* dy, const void* dfinal,
+                     void* dx, void* da, void* db, void* dc, void* states,
+                     void* dstates, void* clast, void* dbh, void* dch, int B,
+                     int S, int H, int P, int G, int N, cudaStream_t stream) {
+  return sbwd::launch<__nv_bfloat16>(
+      x, a, b, c, dy, dfinal, dx, da, db, dc, static_cast<float*>(states),
+      static_cast<float*>(dstates), static_cast<float*>(clast),
+      static_cast<float*>(dbh), static_cast<float*>(dch), B, S, H, P, G, N,
+      stream);
 }
 
 }  // extern "C"

@@ -27,6 +27,15 @@ chunks by ``chunk``.  The kernels read ragged tails as zeros, so nothing is
 padded.  The scan starts from a zero state: the reference's
 ``initial_state`` argument has no caller in either package and is not
 carried over.
+
+Training: when autograd records (grad enabled and an input that requires
+grad), :func:`ssd` goes through a ``torch.autograd.Function`` whose
+backward is :func:`ssd_bwd`: on CUDA the hand-written backward kernels
+(``csrc/ssd.cu``, namespace ``sbwd``: four device kernels per call, both
+dtypes on the CUDA cores, chunks of ``CHUNK_BWD`` = 32 rows), counted by
+``LAUNCHES["ssd_bwd"]`` once per call; on the CPU ``ref.ssd_bwd``.  The
+backward recomputes the state entering each chunk from the saved inputs,
+so the forward keeps nothing beyond them.
 """
 
 from __future__ import annotations
@@ -39,25 +48,31 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ssd import ref
 
-__all__ = ["LAUNCHES", "SOURCE", "SUB_CHUNK", "CHUNK_BF16", "reset_launches",
-           "ssd"]
+__all__ = ["LAUNCHES", "SOURCE", "SUB_CHUNK", "CHUNK_BF16", "CHUNK_BWD",
+           "reset_launches", "ssd", "ssd_bwd"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 SUB_CHUNK = 64        # kSub in csrc/ssd.cu (float32 instance)
 CHUNK_BF16 = 256      # ssd3::kT in csrc/ssd.cu (bf16 instance)
+CHUNK_BWD = 32        # sbwd::kBt in csrc/ssd.cu (backward, both dtypes)
 MAX_P = MAX_N = 128   # kMaxP / kMaxN in csrc/ssd.cu
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # f32: (x, a, b, c, y, final, B, S, H, P, G, N, stream)
 # bf16: (x, a, b, c, y, final, states, s_in, cum, B, S, H, P, G, N, stream)
+# bwd: (x, a, b, c, dy, dfinal, dx, da, db, dc, states, dstates, clast,
+#       dbh, dch, B, S, H, P, G, N, stream)
 SIGNATURES = {"ksp_ssd_f32": [_P] * 6 + [_I] * 6 + [_P],
-              "ksp_ssd_bf16": [_P] * 9 + [_I] * 6 + [_P]}
+              "ksp_ssd_bf16": [_P] * 9 + [_I] * 6 + [_P],
+              "ksp_ssd_bwd_f32": [_P] * 15 + [_I] * 6 + [_P],
+              "ksp_ssd_bwd_bf16": [_P] * 15 + [_I] * 6 + [_P]}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
-LAUNCHES = {"ssd": 0}
+LAUNCHES = {"ssd": 0, "ssd_bwd": 0}
 
 
 def reset_launches() -> None:
-    LAUNCHES["ssd"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _check(X, A, Bm, Cm, chunk):
@@ -105,6 +120,13 @@ def ssd(X: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     dtype (float32 or bfloat16), contiguous, on one device.
     Returns ``(Y (B,S,H,P) in X's dtype, final_state (B,H,P,N) float32)``.
     """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (X, A, Bm, Cm)):
+        return _SSD.apply(X, A, Bm, Cm, chunk)
+    return _forward(X, A, Bm, Cm, chunk)
+
+
+def _forward(X, A, Bm, Cm, chunk):
     B, S, H, P, G, N = _check(X, A, Bm, Cm, chunk)
     if X.device.type == "cpu":
         return ref.ssd(X, A, Bm, Cm, chunk)
@@ -126,3 +148,60 @@ def ssd(X: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
                  B, S, H, P, G, N)
     LAUNCHES["ssd"] += 1
     return y, final
+
+
+def ssd_bwd(X: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+            Cm: torch.Tensor, chunk: int, dY: torch.Tensor,
+            dfinal: torch.Tensor = None):
+    """The gradients ``(dX, dA, dBm, dCm)`` of :func:`ssd` from its inputs,
+    ``dY`` (like X, contiguous) and the final state's gradient ``dfinal``
+    (B, H, P, N) float32, or None when the final state is unused: the
+    backward kernels on CUDA, the plain version on the CPU."""
+    B, S, H, P, G, N = _check(X, A, Bm, Cm, chunk)
+    if dY.shape != X.shape or dY.dtype != X.dtype \
+            or dY.device != X.device or not dY.is_contiguous():
+        raise ValueError("dY must be a contiguous tensor like X")
+    if dfinal is not None and (
+            dfinal.shape != (B, H, P, N) or dfinal.dtype != torch.float32
+            or dfinal.device != X.device or not dfinal.is_contiguous()):
+        raise ValueError(f"dfinal must be a contiguous (B, H, P, N) float32 "
+                         f"tensor on {X.device}")
+    if X.device.type == "cpu":
+        return ref.ssd_bwd(X, A, Bm, Cm, chunk, dY, dfinal)
+    dX, dA, dBm, dCm = (torch.empty_like(t) for t in (X, A, Bm, Cm))
+    nc = -(-S // CHUNK_BWD)
+    f32 = dict(dtype=torch.float32, device=X.device)
+    states = torch.empty((B, nc, H, P, N), **f32)
+    dstates = torch.empty_like(states)
+    clast = torch.empty((B, H, nc), **f32)
+    dbh = torch.empty((B, S, H, N), **f32)
+    dch = torch.empty_like(dbh)
+    lib = build.load(SOURCE, SIGNATURES)
+    build.launch(lib, f"ksp_ssd_bwd_{_SUFFIX[X.dtype]}", X.device,
+                 *(t.data_ptr() for t in (X, A, Bm, Cm, dY)),
+                 None if dfinal is None else dfinal.data_ptr(),
+                 *(t.data_ptr() for t in (dX, dA, dBm, dCm, states, dstates,
+                                          clast, dbh, dch)),
+                 B, S, H, P, G, N)
+    LAUNCHES["ssd_bwd"] += 1
+    return dX, dA, dBm, dCm
+
+
+class _SSD(torch.autograd.Function):
+    """:func:`ssd` with its gradient: the backward is :func:`ssd_bwd` on the
+    saved inputs (the final state's gradient is None when it is unused)."""
+
+    @staticmethod
+    def forward(ctx, X, A, Bm, Cm, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(X, A, Bm, Cm)
+        ctx.chunk = chunk
+        return _forward(X, A, Bm, Cm, chunk)
+
+    @staticmethod
+    def backward(ctx, dY, dfinal):
+        X, A, Bm, Cm = ctx.saved_tensors
+        dY = torch.zeros_like(X) if dY is None else dY.contiguous()
+        if dfinal is not None:
+            dfinal = dfinal.float().contiguous()
+        return (*ssd_bwd(X, A, Bm, Cm, ctx.chunk, dY, dfinal), None)

@@ -1,17 +1,19 @@
-"""Model assembly: embed → blocks → norm → head, and the serving entry points.
+"""Model assembly: embed → blocks → norm → head; serving and training.
 
 Counterpart of the reference's ``models/model.py`` for the families the
-port serves: ``dense``, ``ssm`` (Mamba2) and ``hybrid`` (Zamba2: Mamba2
+port runs: ``dense``, ``ssm`` (Mamba2) and ``hybrid`` (Zamba2: Mamba2
 blocks with one weight-shared dense block after every
 ``shared_attn_every``-th of them).  ``moe``, ``vlm`` and ``audio`` raise
-:class:`NotImplementedError` (ROADMAP A11).
+:class:`NotImplementedError` (ROADMAP A11a).
 
 The reference stacks each parameter over a scanned layer axis (hybrids over
 ``(L/every, every)``) and runs ``lax.scan``; here a :class:`Model` holds one
-module per layer in an ``nn.ModuleList`` and a Python loop walks them.  The
-reference's ``_maybe_remat`` and ``logical_constraint`` do nothing when
-serving on one card and are dropped; they return with training and
-sharding.  ``forward_train`` waits for the training slice.
+module per layer in an ``nn.ModuleList`` and a Python loop walks them, one
+scan step at a time (a block, or a hybrid's super-layer of ``every`` Mamba2
+blocks and the shared block).  The reference's ``_maybe_remat`` becomes
+``torch.utils.checkpoint`` around that same step when ``cfg.remat ==
+"full"`` and autograd records; ``logical_constraint`` (sharding) has no
+counterpart on one card.
 
 Entry points, with the reference's names:
 
@@ -23,7 +25,14 @@ Entry points, with the reference's names:
   with the reference's keys, shapes and dtypes;
 * :func:`prefill` / :func:`decode_step` — run where the model's parameters
   are.  ``decode_step`` updates the cache's tensors in place and returns
-  the same dict.
+  the same dict;
+* :func:`forward_train` — ``(loss, metrics)`` of a batch of tokens and
+  labels through the reference's fused LM head and cross entropy, with
+  autograd recording (on the card the forward and backward kernels of
+  attention and SSD);
+* :func:`export_tree` / :func:`import_tree` — named tensors (parameters,
+  AdamW moments) to and from the reference's stacked tree of numpy arrays,
+  the layout of its checkpoints.
 """
 
 from __future__ import annotations
@@ -34,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import update_positions
@@ -42,14 +52,15 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_lookup, rmsnorm
 from repro_torch.models.params import ParamDef, init_param
 
-__all__ = ["Model", "init_params", "load_jax_params", "cache_shapes",
-           "init_cache", "prefill", "decode_step"]
+__all__ = ["Model", "init_params", "load_jax_params", "decayed",
+           "export_tree", "import_tree", "tree_shapes", "cache_shapes",
+           "init_cache", "prefill", "decode_step", "forward_train"]
 
 _WAITING = {
-    "moe": "the MoE family waits for ROADMAP A11 (MoE, VLM and audio)",
-    "vlm": "the VLM family (M-RoPE) waits for ROADMAP A11 (MoE, VLM and "
+    "moe": "the MoE family waits for ROADMAP A11a (MoE, VLM and audio)",
+    "vlm": "the VLM family (M-RoPE) waits for ROADMAP A11a (MoE, VLM and "
            "audio)",
-    "audio": "the audio family (encoder-only) waits for ROADMAP A11 (MoE, "
+    "audio": "the audio family (encoder-only) waits for ROADMAP A11a (MoE, "
              "VLM and audio)",
 }
 
@@ -119,39 +130,103 @@ def _leaf_paths(tree, prefix=()):
         yield prefix
 
 
-def load_jax_params(cfg: ModelConfig, tree: Dict, device=None) -> Model:
-    """The reference's parameter tree (nested dicts of numpy arrays, e.g.
-    ``jax.tree.map(np.asarray, params)``) as a :class:`Model`.
+def _ref_path(cfg: ModelConfig, name: str):
+    """``(path, index)`` of the port's parameter ``name`` in the reference's
+    tree: ``blocks.3.mamba.in_proj`` → ``(("blocks", "mamba", "in_proj"),
+    (3,))``, or ``((0, 3),)`` for a hybrid's ``(L/every, every)`` stack."""
+    parts = tuple(name.split("."))
+    if parts[0] != "blocks":
+        return parts, ()
+    i, every = int(parts[1]), cfg.shared_attn_every
+    idx = (i // every, i % every) if cfg.family == "hybrid" else (i,)
+    return ("blocks",) + parts[2:], idx
 
-    Unstacks the scan axis (and a hybrid's ``(L/every, every)`` double
-    stack) into one block per layer and places the shared block.  Raises if
-    a shape differs or a leaf of the tree has no counterpart.
-    """
-    model = Model(cfg, None, resolve_device(device))
-    every = cfg.shared_attn_every
+
+def _stack_shape(cfg: ModelConfig) -> tuple:
+    if cfg.family == "hybrid":
+        return (_n_scan(cfg), cfg.shared_attn_every)
+    return (cfg.n_layers,)
+
+
+def _put(tree: Dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def decayed(cfg: ModelConfig, named: Dict[str, torch.Tensor]) -> Dict:
+    """``{name: bool}``: the tensors the reference's AdamW decays, those
+    with ``ndim > 1`` in its stacked layout (every block parameter, and the
+    matrices outside the blocks)."""
+    out = {}
+    for name, t in named.items():
+        stacked = _stack_shape(cfg) if _ref_path(cfg, name)[1] else ()
+        out[name] = len(stacked) + t.dim() > 1
+    return out
+
+
+def tree_shapes(cfg: ModelConfig, named: Dict[str, torch.Tensor]) -> Dict:
+    """The reference-layout tree of the shapes of ``named`` (``{port
+    parameter name: tensor}``): blocks stacked over the scan axis."""
+    out: Dict = {}
+    for name, t in named.items():
+        path, idx = _ref_path(cfg, name)
+        shape = (_stack_shape(cfg) if idx else ()) + tuple(t.shape)
+        _put(out, path, shape)
+    return out
+
+
+def export_tree(cfg: ModelConfig, named: Dict[str, torch.Tensor]) -> Dict:
+    """``named`` (``{port parameter name: tensor}``, e.g. the parameters or
+    an AdamW moment) as the reference's tree of numpy arrays, blocks
+    stacked over the scan axis: the inverse of :func:`import_tree`.  The
+    arrays are copies on the host."""
+    out: Dict = {}
+    stacks: Dict = {}
+    for name, t in named.items():
+        path, idx = _ref_path(cfg, name)
+        arr = t.detach().cpu().numpy()
+        if not idx:
+            _put(out, path, arr.copy())
+            continue
+        if path not in stacks:
+            stacks[path] = np.empty(_stack_shape(cfg) + arr.shape, arr.dtype)
+            _put(out, path, stacks[path])
+        stacks[path][idx] = arr
+    return out
+
+
+def import_tree(cfg: ModelConfig, tree: Dict,
+                named: Dict[str, torch.Tensor]) -> None:
+    """Copy the reference-layout ``tree`` (nested dicts of numpy arrays)
+    into the tensors of ``named`` in place, unstacking the scan axis (and a
+    hybrid's ``(L/every, every)`` double stack).  Raises if a shape differs
+    or a leaf of the tree has no counterpart."""
     seen = set()
     with torch.no_grad():
-        for name, param in model.named_parameters():
-            parts = tuple(name.split("."))
-            if parts[0] == "blocks":
-                i, path = int(parts[1]), ("blocks",) + parts[2:]
-                idx = (i // every, i % every) if cfg.family == "hybrid" \
-                    else (i,)
-            else:
-                path, idx = parts, ()
+        for name, t in named.items():
+            path, idx = _ref_path(cfg, name)
             node = tree
             for key in path:
                 node = node[key]
             arr = np.array(np.asarray(node)[idx], dtype=np.float32)
-            if arr.shape != tuple(param.shape):
+            if arr.shape != tuple(t.shape):
                 raise ValueError(f"{name}: reference {arr.shape} vs port "
-                                 f"{tuple(param.shape)}")
-            param.copy_(torch.from_numpy(arr))
+                                 f"{tuple(t.shape)}")
+            t.copy_(torch.from_numpy(arr))
             seen.add(path)
     missing = set(_leaf_paths(tree)) - seen
     if missing:
         raise ValueError(f"reference leaves with no counterpart: "
                          f"{sorted(missing)}")
+
+
+def load_jax_params(cfg: ModelConfig, tree: Dict, device=None) -> Model:
+    """The reference's parameter tree (nested dicts of numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) as a :class:`Model`, through
+    :func:`import_tree`."""
+    model = Model(cfg, None, resolve_device(device))
+    import_tree(cfg, tree, dict(model.named_parameters()))
     return model
 
 
@@ -214,25 +289,55 @@ def _default_positions(Bsz: int, S: int, device) -> torch.Tensor:
                         device=device)[None].expand(Bsz, S)
 
 
-def _forward_seq(model: Model, cfg: ModelConfig, h, positions,
-                 collect_cache: bool):
-    """Prefill body.  Returns ``(h, cache_ys)``: per layer (and attention
-    application) the k/v, final SSM states and conv tails when
-    ``collect_cache``, else None."""
+def _scan_steps(model: Model, cfg: ModelConfig):
+    """The reference's scan steps as ``(blocks, shared block or None)``: one
+    block each for dense / ssm, a super-layer of ``every`` Mamba2 blocks
+    and the shared block for a hybrid (``model.py:233``)."""
+    if cfg.family != "hybrid":
+        return [([blk], None) for blk in model.blocks]
+    e = cfg.shared_attn_every
+    return [(list(model.blocks[j * e:(j + 1) * e]), model.shared)
+            for j in range(_n_scan(cfg))]
+
+
+def _scan_step(cfg: ModelConfig, blocks, shared, h, positions,
+               collect_cache: bool):
+    """One scan step.  Returns ``(h, kvs, ssms, convs)``."""
     window = cfg.sliding_window
     kvs, ssms, convs = [], [], []
-    for i, blk in enumerate(model.blocks):
+    for blk in blocks:
         if cfg.family == "dense":
             h, kv = blk(h, positions, window=window, return_kv=collect_cache)
             kvs.append(kv)
+        else:
+            h, ssm, conv = blk(h)
+            ssms.append(ssm)
+            convs.append(conv)
+    if shared is not None:
+        h, kv = shared(h, positions, window=window, return_kv=collect_cache)
+        kvs.append(kv)
+    return h, kvs, ssms, convs
+
+
+def _forward_seq(model: Model, cfg: ModelConfig, h, positions,
+                 collect_cache: bool, remat: bool = False):
+    """Shared train/prefill body.  Returns ``(h, cache_ys)``: per layer (and
+    attention application) the k/v, final SSM states and conv tails when
+    ``collect_cache``, else None.  With ``remat`` (training only) each scan
+    step keeps only its input for the backward and runs again there."""
+    kvs, ssms, convs = [], [], []
+    for blocks, shared in _scan_steps(model, cfg):
+        if remat:
+            h = checkpoint(
+                lambda x, b=blocks, s=shared: _scan_step(
+                    cfg, b, s, x, positions, False)[0],
+                h, use_reentrant=False)
             continue
-        h, ssm, conv = blk(h)
-        ssms.append(ssm)
-        convs.append(conv)
-        if cfg.family == "hybrid" and (i + 1) % cfg.shared_attn_every == 0:
-            h, kv = model.shared(h, positions, window=window,
-                                 return_kv=collect_cache)
-            kvs.append(kv)
+        h, kv, ssm, conv = _scan_step(cfg, blocks, shared, h, positions,
+                                      collect_cache)
+        kvs += kv
+        ssms += ssm
+        convs += conv
     if not collect_cache:
         return h, None
     ys = {"kv": kvs} if kvs else {}
@@ -246,6 +351,59 @@ def _head_logits(model: Model, cfg: ModelConfig, h) -> torch.Tensor:
     reference's ``preferred_element_type=float32``."""
     h = rmsnorm(h, model.final_ln, cfg.norm_eps)
     return h.float() @ model.head.to(h.dtype).float()
+
+
+def _fused_head_ce(model: Model, cfg: ModelConfig, h: torch.Tensor,
+                   labels: torch.Tensor) -> torch.Tensor:
+    """The reference's fused LM head + cross entropy, with its roundings:
+    the logits are rounded to the compute dtype before the max and the
+    exponent, and the gold logit is ``h · head[:, label]`` in float32 (a
+    gather of head columns, not of the logits)."""
+    h = rmsnorm(h, model.final_ln, cfg.norm_eps)
+    head = model.head.to(h.dtype)
+    # in bf16 one rounding of the float32 accumulation, as the reference's
+    # einsum(preferred_element_type=float32).astype(h.dtype)
+    logits = h @ head
+    m = torch.amax(logits, dim=-1)
+    ex = torch.exp((logits - m[..., None]).float())
+    lse = m.float() + torch.log(torch.sum(ex, dim=-1))
+    Bsz, S = labels.shape
+    # advanced indexing: its backward accumulates deterministically on CUDA
+    gold_cols = head[:, labels.reshape(-1).long()]             # (D, B*S)
+    gold_cols = gold_cols.T.reshape(Bsz, S, head.shape[0])
+    gold = torch.sum(h.float() * gold_cols.float(), dim=-1)
+    return torch.mean(lse - gold)
+
+
+def forward_train(model: Model, cfg: ModelConfig, batch: Dict):
+    """Returns ``(loss, metrics)`` with autograd recording.  batch:
+    ``tokens`` (B,S) int, ``labels`` (B,S) int and optional ``positions``.
+
+    With ``cfg.logits_chunk`` and ``S > logits_chunk`` the head and cross
+    entropy run over ``S // logits_chunk`` chunks, as the reference (a
+    ragged tail past the last full chunk is left out, as there).
+    """
+    _check_family(cfg)
+    h = _embed_inputs(model, cfg, batch)
+    Bsz, S = h.shape[0], h.shape[1]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = _default_positions(Bsz, S, h.device)
+    h, _ = _forward_seq(model, cfg, h, positions, collect_cache=False,
+                        remat=cfg.remat == "full"
+                        and torch.is_grad_enabled())
+    labels = batch["labels"]
+    if cfg.logits_chunk and S > cfg.logits_chunk:
+        n, c = S // cfg.logits_chunk, cfg.logits_chunk
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(n):
+            sl = slice(i * c, (i + 1) * c)
+            total = total + _fused_head_ce(model, cfg, h[:, sl],
+                                           labels[:, sl])
+        loss = total / n
+    else:
+        loss = _fused_head_ce(model, cfg, h, labels)
+    return loss, {"ce_loss": loss, "loss": loss}
 
 
 @torch.no_grad()

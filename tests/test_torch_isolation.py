@@ -23,6 +23,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.wastage import ops
 from repro_torch.launch.serve import serve_demo
+from repro_torch.launch.train import train
 from repro_torch.models import init_cache, init_params, load_jax_params
 from repro_torch.sched import (
     AdmissionState,
@@ -103,6 +104,8 @@ ENTRY_POINTS = {
         tenants=1, n_requests=8),
     "launch.serve.serve_demo": lambda: serve_demo("qwen3-1.7b",
                                                   requests=1),
+    "launch.train.train": lambda: train("qwen3-1.7b", steps=1,
+                                        monitor=False),
 }
 
 
@@ -135,4 +138,19 @@ def test_cpu_tensors_count_no_lm_kernel_launch():
     before = (dict(flash_ops.LAUNCHES), dict(ssd_ops.LAUNCHES))
     flash_ops.flash_attention(q, k, v)
     ssd_ops.ssd(X, A, Bm, Cm, 8)
+    assert (flash_ops.LAUNCHES, ssd_ops.LAUNCHES) == before
+
+
+def test_cpu_backward_counts_no_lm_kernel_launch():
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(1, 16, 2, 8, generator=g, requires_grad=True)
+               for _ in range(3))
+    X = torch.randn(1, 16, 2, 8, generator=g, requires_grad=True)
+    A = (-torch.rand(1, 16, 2, generator=g)).requires_grad_()
+    Bm, Cm = (torch.randn(1, 16, 1, 4, generator=g, requires_grad=True)
+              for _ in range(2))
+    before = (dict(flash_ops.LAUNCHES), dict(ssd_ops.LAUNCHES))
+    flash_ops.flash_attention(q, k, v).sum().backward()
+    ssd_ops.ssd(X, A, Bm, Cm, 8)[0].sum().backward()
+    assert q.grad is not None and X.grad is not None
     assert (flash_ops.LAUNCHES, ssd_ops.LAUNCHES) == before

@@ -9,6 +9,15 @@ sequential recurrence), and through the port, on the sweeps of
 ``tests/test_kernels.py``.  Tolerances are the reference tests' own:
 flash attention 2e-5 in float32 and 2e-2 in bfloat16, SSD 5e-3.
 
+The backward (``flash_attention_bwd``, ``ssd_bwd``; the reference has no
+backward kernel and trains through the XLA forms ``chunked_gqa_attention``
+and ``ssd_chunked``): on the CPU the wrappers take the plain backward
+functions, which are held within 1e-4 of the largest element of
+``jax.vjp`` of those XLA forms, and within 1e-4 of autograd through the
+port's plain forward (which also covers a row that sees no key, where the
+XLA form's online softmax over the visited chunks differs from the dense
+softmax by design).
+
 The CUDA kernels have no CPU mode: the ``cuda``-marked tests hold them
 against the plain versions on the card and skip here.  What the bf16
 kernels compute is rehearsed here instead: plain torch emulations of their
@@ -17,6 +26,7 @@ arithmetic (tiles, passes and bf16 operand roundings, ``_flash_bf16`` and
 versions and against the reference's bf16 model path and Pallas kernels.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +37,7 @@ from repro.kernels import ssd_pallas
 from repro.kernels.flash_attention.ref import mha_reference
 from repro.kernels.ssd.ref import ssd_reference
 from repro.models.attention import chunked_gqa_attention
+from repro.models.mamba2 import ssd_chunked
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
@@ -181,6 +192,130 @@ class TestSSD:
                                    rtol=0)
 
 
+# ---------------------------------------------------------------- backward
+def _close_to_max(got, want, tol=1e-4, what=""):
+    """Within ``tol`` of the largest |want| (and of each element)."""
+    want = _f32(want)
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(_f32(got), want, rtol=tol, atol=tol * scale,
+                               err_msg=what)
+
+
+def _jax_vjp(fn, args, cot):
+    """``jax.vjp`` of ``fn`` at the float32 ``args`` against ``cot``, jitted
+    (one compile instead of one per eager op)."""
+    return jax.jit(lambda a, c: jax.vjp(fn, *a)[1](c))(
+        tuple(jnp.asarray(x, jnp.float32) for x in args), cot)
+
+
+def _grads_of(fn, args, cot):
+    """Autograd of the port's plain forward: ``fn(*args)`` against ``cot``."""
+    leaves = [_t(a).requires_grad_() for a in args]
+    out = fn(*leaves)
+    out = out[0] if isinstance(out, tuple) else out
+    return torch.autograd.grad(out, leaves, _t(cot))
+
+
+class TestBackward:
+    @pytest.mark.parametrize("B,Sq,Skv,H,K,hd,causal,window", [
+        (1, 64, 64, 4, 1, 32, True, None),     # MQA
+        (2, 48, 80, 4, 2, 16, False, None),
+        (1, 96, 96, 2, 2, 32, True, 24),       # sliding window
+        (1, 50, 50, 2, 2, 16, True, None),     # unaligned
+        (1, 40, 40, 2, 2, 80, True, None),     # zamba2's hd
+    ])
+    def test_flash_bwd_matches_jax_vjp(self, B, Sq, Skv, H, K, hd, causal,
+                                       window):
+        q, k, v = _qkv(20 + Sq, B, Sq, Skv, H, K, hd)
+        do = np.random.default_rng(Sq).standard_normal(q.shape)
+        kw = dict(causal=causal, window=window)
+        o, lse = flash_ops.ref.flash_attention_fwd(_t(q), _t(k), _t(v), **kw)
+        got = flash_ops.flash_attention_bwd(_t(q), _t(k), _t(v), o, _t(do),
+                                            lse, **kw)
+        want = _jax_vjp(lambda a, b, c: chunked_gqa_attention(
+            a, b, c, chunk_q=16, chunk_kv=16, **kw), (q, k, v),
+            jnp.asarray(do, jnp.float32))
+        auto = _grads_of(lambda a, b, c: flash_ops.ref.flash_attention(
+            a, b, c, **kw), (q, k, v), do)
+        for g, w, a, n in zip(got, want, auto, "qkv"):
+            assert g.shape == a.shape and g.dtype == torch.float32
+            _close_to_max(g, w, what=f"d{n} vs jax.vjp")
+            _close_to_max(g, a, what=f"d{n} vs autograd")
+
+    def test_flash_bwd_keyless_rows(self):
+        """Queries past ``Skv + window - 1`` see no key: V averaged with
+        weights 1/Skv, dQ zero; against autograd of the plain forward."""
+        q, k, v = _qkv(30, 1, 96, 40, 2, 1, 16)
+        do = np.random.default_rng(31).standard_normal(q.shape)
+        kw = dict(causal=True, window=24)
+        o, lse = flash_ops.ref.flash_attention_fwd(_t(q), _t(k), _t(v), **kw)
+        got = flash_ops.flash_attention_bwd(_t(q), _t(k), _t(v), o, _t(do),
+                                            lse, **kw)
+        auto = _grads_of(lambda a, b, c: flash_ops.ref.flash_attention(
+            a, b, c, **kw), (q, k, v), do)
+        for g, a, n in zip(got, auto, "qkv"):
+            _close_to_max(g, a, what=f"d{n}")
+        assert not got[0][:, 40 + 24 - 1:].any()
+
+    @pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+        (1, 128, 2, 16, 1, 32, 32),
+        (2, 96, 4, 16, 2, 16, 64),    # padded sequence
+        (1, 64, 8, 8, 4, 8, 16),      # G = 4
+    ])
+    @pytest.mark.parametrize("with_dfinal", [False, True])
+    def test_ssd_bwd_matches_jax_vjp(self, B, S, H, P, G, N, chunk,
+                                     with_dfinal):
+        X, A, Bm, Cm = _ssd_inputs(40 + S, B, S, H, P, G, N)
+        rng = np.random.default_rng(S + H)
+        dY = rng.standard_normal(X.shape)
+        dF = rng.standard_normal((B, H, P, N)) if with_dfinal \
+            else np.zeros((B, H, P, N))
+        got = ssd_ops.ssd_bwd(*(_t(a) for a in (X, A, Bm, Cm)), chunk,
+                              _t(dY), _t(dF) if with_dfinal else None)
+        f = lambda a: jnp.asarray(a, jnp.float32)  # noqa: E731
+        want = _jax_vjp(lambda *a: ssd_chunked(*a, chunk), (X, A, Bm, Cm),
+                        (f(dY), f(dF)))
+        leaves = [_t(a).requires_grad_() for a in (X, A, Bm, Cm)]
+        y, fin = ssd_ops.ref.ssd(*leaves, chunk)
+        auto = torch.autograd.grad((y * _t(dY)).sum() + (fin * _t(dF)).sum(),
+                                   leaves)
+        for g, w, a, n in zip(got, want, auto, ("X", "A", "Bm", "Cm")):
+            assert g.shape == a.shape and g.dtype == torch.float32
+            _close_to_max(g, w, what=f"d{n} vs jax.vjp")
+            _close_to_max(g, a, what=f"d{n} vs autograd")
+
+    def test_ssd_bwd_chunk_invariance(self):
+        """The backward kernel chunks by ``CHUNK_BWD`` rows whatever the
+        model's chunk: the gradients may not depend on the chunk."""
+        X, A, Bm, Cm = _ssd_inputs(50, 1, 200, 4, 16, 2, 16)
+        dY = np.random.default_rng(51).standard_normal(X.shape)
+        args = [_t(a) for a in (X, A, Bm, Cm)]
+        base = ssd_ops.ssd_bwd(*args, 16, _t(dY))
+        for chunk in (ssd_ops.CHUNK_BWD, 256):
+            for g, w in zip(ssd_ops.ssd_bwd(*args, chunk, _t(dY)), base):
+                _close_to_max(g, w)
+
+    def test_autograd_function_routes_to_plain_backward(self):
+        """A CPU tensor that requires grad goes through the wrappers'
+        ``autograd.Function`` (forward with lse, plain backward) and counts
+        no launch; its gradients equal autograd of the plain forward."""
+        q, k, v = _qkv(60, 1, 32, 32, 4, 2, 16)
+        X, A, Bm, Cm = _ssd_inputs(61, 1, 40, 4, 8, 2, 8)
+        before = (dict(flash_ops.LAUNCHES), dict(ssd_ops.LAUNCHES))
+        do = np.random.default_rng(62).standard_normal(q.shape)
+        got = _grads_of(flash_ops.flash_attention, (q, k, v), do)
+        want = _grads_of(flash_ops.ref.flash_attention, (q, k, v), do)
+        for g, w in zip(got, want):
+            _close_to_max(g, w)
+        dY = np.random.default_rng(63).standard_normal(X.shape)
+        got = _grads_of(lambda *a: ssd_ops.ssd(*a, 16), (X, A, Bm, Cm), dY)
+        want = _grads_of(lambda *a: ssd_ops.ref.ssd(*a, 16), (X, A, Bm, Cm),
+                         dY)
+        for g, w in zip(got, want):
+            _close_to_max(g, w)
+        assert (flash_ops.LAUNCHES, ssd_ops.LAUNCHES) == before
+
+
 # ------------------------------------------------------- wrapper contract
 class TestWrapperContract:
     def test_flash_rejects_bad_inputs(self):
@@ -252,6 +387,44 @@ class TestKernelsOnCard:
             tol = SSD_TOL if dtype == torch.float32 else BF16
             torch.testing.assert_close(y.float(), yr.float(), **tol)
             torch.testing.assert_close(st, sr, **SSD_TOL)
+
+
+    def test_backward_kernels_match_plain(self):
+        if not torch.cuda.is_available():
+            pytest.skip("the CUDA kernel has no CPU mode; needs a CUDA card")
+        for seed, (shape, causal, window, dtype) in enumerate([
+                ((2, 64, 192, 4, 2, 32), False, None, torch.float32),
+                ((1, 192, 96, 2, 2, 32), True, 64, torch.float32),
+                ((1, 300, 300, 32, 32, 80), True, None, torch.bfloat16)]):
+            q, k, v = (_t(a, dtype).cuda() for a in _qkv(seed, *shape))
+            o, lse = flash_ops.ref.flash_attention_fwd(q, k, v, causal=causal,
+                                                       window=window)
+            do = torch.randn_like(o.float()).to(dtype)
+            before = flash_ops.LAUNCHES["flash_attention_bwd"]
+            got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse,
+                                                causal=causal, window=window)
+            assert flash_ops.LAUNCHES["flash_attention_bwd"] == before + 1
+            want = flash_ops.ref.flash_attention_bwd(
+                q, k, v, o, do, lse, causal=causal, window=window)
+            for g, w in zip(got, want):
+                tol = 1e-4 if dtype == torch.float32 else 2e-2
+                scale = float(w.float().abs().max())
+                torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                           atol=tol * scale)
+        for seed, (shape, chunk, dtype) in enumerate([
+                ((1, 100, 4, 32, 2, 16), 64, torch.float32),
+                ((1, 300, 80, 64, 1, 64), 256, torch.bfloat16)]):
+            args = [_t(a, dtype).cuda() for a in _ssd_inputs(seed, *shape)]
+            dY = torch.randn(args[0].shape, device="cuda").to(dtype)
+            before = ssd_ops.LAUNCHES["ssd_bwd"]
+            got = ssd_ops.ssd_bwd(*args, chunk, dY)
+            assert ssd_ops.LAUNCHES["ssd_bwd"] == before + 1
+            want = ssd_ops.ref.ssd_bwd(*args, chunk, dY)
+            for g, w in zip(got, want):
+                tol = 1e-4 if dtype == torch.float32 else 2e-2
+                scale = float(w.float().abs().max())
+                torch.testing.assert_close(g.float(), w.float(), rtol=tol,
+                                           atol=tol * scale)
 
 
 # ------------------------------------------- rehearsal of the bf16 kernels
