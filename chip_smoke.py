@@ -106,19 +106,23 @@ Phases (any failure exits non-zero; nothing is caught):
    most bytes (the ``fleet_engine`` record's ``serve`` entry);
 14. training on the card: (a) the backward kernels (built in phase 2 with
    the forwards, the same two sources) with registers and spills from
-   ``ptxas -v``; (b) ``flash_attention_bwd`` (MQA, non-causal GQA, window
-   64 with rows that see no key, unaligned S = 100, hd = 80) and
-   ``ssd_bwd`` (chunks 32 / 64 / 128, S = 96 and a padded S = 100, G = 2
-   and 4), f32 and bf16, against their plain versions and against autograd
-   through the plain forward on the same CUDA tensors: f32 within 1e-4 of
-   each element and of the tensor's largest, bf16 within 2e-2 of each
-   (the forward tests' bf16 tolerance); the forward kernel's new ``lse``
-   output against the plain one; (c) one ``train_step`` of the full-width
-   model cut to 6 Mamba2 blocks + the shared block, B = 1, S = 300, card
-   against CPU: the loss and every gradient, and every parameter after
-   AdamW against the CPU's AdamW fed the card's gradients, at phase 10's
-   tolerances, but for the bf16 per-head gradients (``A_log``,
-   ``dt_bias``), held to a relative L2 error of 0.1 (see
+   ``ptxas -v`` and ``HGMMA`` counts from ``cuobjdump -sass``; (b)
+   ``flash_attention_bwd`` (MQA, non-causal GQA, window 64 with rows that
+   see no key, unaligned S = 100, hd = 80, and four cases that cross the
+   bf16 kernel's 128-row tiles: S = 300, GQA at S = 384, a window with
+   key-less rows, all at hd = 80, and GQA at hd = 128) and ``ssd_bwd``
+   (chunks 32 / 64 / 128, S = 96 and a padded S = 100, G = 2 and 4, and
+   S = 600, 520 and 300 across the bf16 kernel's 256-row chunks, the last
+   at P = N = 128), f32 and bf16, against their plain versions and
+   against autograd through the plain forward on the same CUDA tensors: f32
+   within 1e-4 of each element and of the tensor's largest, bf16 within
+   2e-2 of each (the forward tests' bf16 tolerance); the forward kernel's
+   ``lse`` output against the plain one; (c) one ``train_step`` of the
+   full-width model cut to 6 Mamba2 blocks + the shared block, B = 1,
+   S = 300, card against CPU: the loss and every gradient, and every
+   parameter after AdamW against the CPU's AdamW fed the card's gradients,
+   at phase 10's tolerances, but for the bf16 per-head gradients
+   (``A_log``, ``dt_bias``), held to a relative L2 error of 0.1 (see
    ``train_card_vs_cpu``); (d) ``launch.train.train("zamba2-2.7b", smoke=False,
    seq=2048, batch=1, steps=8)`` (``remat="none"``, as the reference's
    ``train``): seconds per step (median after the first), tokens/s, peak
@@ -130,8 +134,10 @@ Phases (any failure exits non-zero; nothing is caught):
    (e) zamba2-smoke trained on the card with checkpoints every 3 steps,
    killed at step 5 and resumed: losses bitwise those of an uninterrupted
    run; (f) both backward kernels timed at the 1 x 2048 training shapes
-   beside their plain versions, their bounds and, for attention, the
-   backward of ``scaled_dot_product_attention``.
+   (``ssd_bwd`` with the forward's saved entering states, as training
+   calls it, and alone) beside their plain versions, their bounds, PR 17's
+   times and, for attention, the backward of
+   ``scaled_dot_product_attention``.
 
 The card's ``nvidia-smi`` line comes two lines before the end, then
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -1617,8 +1623,11 @@ def replay_time(runs=1):
 # ------------------------------------------------------------- phase 14
 def bwd_parity_cases():
     """The backward kernels' sweeps, each in float32 and bfloat16.  The
-    window case has queries past ``Skv + window - 1``, rows that see no
-    key; S = 100 pads the attention tiles and the SSD's 32-row chunks."""
+    window cases have queries past ``Skv + window - 1``, rows that see no
+    key; S = 100 pads the attention tiles and the SSD's 32-row chunks.  The
+    last four attention and three SSD cases cross the bf16 kernels' 128-row
+    tiles and 256-row chunks, the last of each at the widest head (hd,
+    P = N = 128)."""
     rng = np.random.default_rng(4)
     flash, ssd = [], []
     for dtype in (torch.float32, torch.bfloat16):
@@ -1628,12 +1637,20 @@ def bwd_parity_cases():
                 ("window=64, key-less rows", (1, 192, 96, 2, 2, 32), True,
                  64),
                 ("unaligned S=100", (1, 100, 100, 2, 2, 32), True, None),
-                ("hd=80", (1, 96, 96, 4, 4, 80), True, None)]:
+                ("hd=80", (1, 96, 96, 4, 4, 80), True, None),
+                ("S=300 hd=80", (1, 300, 300, 4, 4, 80), True, None),
+                ("GQA S=384 hd=80", (2, 384, 384, 8, 2, 80), True, None),
+                ("window=64, key-less rows, hd=80", (1, 320, 200, 4, 4, 80),
+                 True, 64),
+                ("GQA hd=128", (1, 200, 200, 4, 2, 128), True, None)]:
             flash.append((f"{name} {dtype}", flash_case(
                 rng, *shape, dtype, causal, window)))
         for shape in [(1, 128, 2, 16, 1, 32, 32), (2, 256, 4, 64, 2, 64, 64),
                       (1, 96, 2, 32, 1, 16, 32), (1, 100, 2, 32, 1, 16, 64),
-                      (1, 128, 8, 16, 4, 16, 128)]:
+                      (1, 128, 8, 16, 4, 16, 128),
+                      (1, 600, 8, 64, 1, 64, 256),
+                      (2, 520, 4, 32, 2, 32, 256),
+                      (1, 300, 4, 128, 2, 128, 256)]:
             ssd.append((f"{shape} {dtype}", ssd_case(rng, *shape, dtype)))
     return flash, ssd
 
@@ -1732,6 +1749,11 @@ class TrainSteps:
         self.mod.make_train_step = self.orig
 
 
+# The backward kernels' times before their Hopper redesign (PR 17's
+# CUDA-core designs, NVIDIA H100 80GB HBM3 at 700 W, PERF.md), printed
+# beside this run's for reference.
+PR17_BWD_MS = {"flash_attention_bwd": 7.680, "ssd_bwd": 2.363}
+
 TRAIN_KINDS = {"ssd_bwd": ("ssd_bwd_",),
                "ssd": ("ssd_states", "ssd_pass", "ssd_scan"),
                "flash_attention_bwd": ("flash_bwd_",),
@@ -1741,8 +1763,9 @@ TRAIN_KINDS = {"ssd_bwd": ("ssd_bwd_",),
 
 def profile_call(fn):
     """``fn()`` once under ``torch.profiler``: wall ms, device busy ms and
-    idle share, device ms by kernel kind (``TRAIN_KINDS``, in order) and
-    the top kernels; ``result`` holds what ``fn`` returned."""
+    idle share, device ms by kernel kind (``TRAIN_KINDS``, in order), the
+    top kernels and every device kernel of the LM kernels' kinds (ms,
+    launches); ``result`` holds what ``fn`` returned."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1750,7 +1773,7 @@ def profile_call(fn):
         result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_kind, top = {}, []
+    by_kind, top, lm = {}, [], {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -1759,11 +1782,14 @@ def profile_call(fn):
                      if any(x in e.key for x in keys)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
         top.append((ms, e.count, e.key[:90]))
+        if kind not in ("other", "matmul"):
+            lm[e.key.removeprefix("void ").split("(")[0]] = (ms, e.count)
     top.sort(reverse=True)
     busy = sum(by_kind.values())
     return {"result": result, "wall_ms": wall * 1e3, "device_busy_ms": busy,
             "idle_share": 1 - busy / (wall * 1e3),
-            "device_ms_by_kind": by_kind, "top_kernels_ms_count": top[:15]}
+            "device_ms_by_kind": by_kind, "top_kernels_ms_count": top[:15],
+            "lm_kernels_ms_count": lm}
 
 
 PER_HEAD_GRADS = ("A_log", "dt_bias")
@@ -2018,26 +2044,37 @@ def bwd_kernel_timings(launches, err):
                                    bf)
     dY = torch.as_tensor(rng.standard_normal(X.shape), dtype=torch.float32,
                          device="cuda").to(bf)
-    got = sops.ssd_bwd(X, A, Bm, Cm, chunk, dY)
+    # as training calls it: with the bf16 forward's entering states
+    _, _, states = sops._forward(X, A, Bm, Cm, chunk)
+    got = sops.ssd_bwd(X, A, Bm, Cm, chunk, dY, states=states)
     want = sops.ref.ssd_bwd(X, A, Bm, Cm, chunk, dY)
     torch.cuda.synchronize()
     for g, w, t in zip(got, want, ("X", "A", "Bm", "Cm")):
         _bwd_close(g, w, bf, f"ssd_bwd d{t} at the training shape", err,
                    "ssd_bwd")
     del got, want
-    ms = time_ms(lambda: sops.ssd_bwd(X, A, Bm, Cm, chunk, dY))
+    ms = time_ms(lambda: sops.ssd_bwd(X, A, Bm, Cm, chunk, dY,
+                                      states=states))
+    ms_alone = time_ms(lambda: sops.ssd_bwd(X, A, Bm, Cm, chunk, dY))
     plain_ms = time_ms(lambda: sops.ref.ssd_bwd(X, A, Bm, Cm, chunk, dY),
                        reps=5)
     # x, a, B, C, dY read once, dx, da, dB, dC written once (bf16); the
     # products: twice the forward's in the fixed 64-row form (each forward
-    # product has two gradient products); scratch counts against the time
+    # product has two gradient products); scratch counts against the time.
+    # The per-head dB, dC partials (float32, written and read once each)
+    # are the largest scratch term: a second bound counts them.
     nbytes = (3 * Bsz * S * Hs * P + 2 * Bsz * S * Hs
               + 4 * Bsz * S * G * N) * 2
+    partials = 2 * 2 * Bsz * S * Hs * N * 4
     T = 64
     nops = 2 * Bsz * Hs * -(-S // T) * (T * (T + 1) * (N + P) + 4 * T * P * N)
-    out.append(_entry("ssd_bwd", launches, err, ms, plain_ms, None, nbytes,
-                      nops, f"backward scan, x/dY ({Bsz}, {S}, {Hs}, {P}), "
-                            f"G={G} N={N} bf16"))
+    out.append(_entry(
+        "ssd_bwd", launches, err, ms, plain_ms, None, nbytes, nops,
+        f"backward scan, x/dY ({Bsz}, {S}, {Hs}, {P}), G={G} N={N} bf16, "
+        f"with the forward's entering states",
+        ms_without_states=ms_alone,
+        bound_with_partials_ms=max((nbytes + partials) / HBM_BYTES_PER_S,
+                                   nops / BF16_OPS_PER_S) * 1e3))
     return out
 
 
@@ -2048,8 +2085,9 @@ def training(kernels, err, built):
     from repro_torch.kernels.ssd import ops as sops
     for name, src in (("ssd", sops.SOURCE), ("flash_attention", fops.SOURCE)):
         log(f"phase 14: {name} backward kernels (registers, [spill store, "
-            f"spill load] bytes): " + json.dumps(kernel_report(
-                src, built[name][0], keep=lambda n: "bwd" in n)))
+            f"spill load] bytes, HGMMA instructions): " + json.dumps(
+                kernel_report(src, built[name][0],
+                              keep=lambda n: "bwd" in n)))
     flash, ssd = bwd_parity_cases()
     check_bwd_kernels(flash, ssd, err)
     log(f"phase 14: backward kernel == plain == autograd of the plain "
@@ -2095,9 +2133,14 @@ def training(kernels, err, built):
         f"run's {ft['losses']}")
     bwd = bwd_kernel_timings(full["launches"], err)
     for k in bwd:
-        log(f"phase 14: {k['name']} {k['ms']:.4f} ms (plain "
+        log(f"phase 14: {k['name']} {k['ms']:.4f} ms (PR 17's CUDA-core "
+            f"design: {PR17_BWD_MS[k['name']]} ms; plain "
             f"{k['plain_ms']:.4f}, library {k['library_ms']}, bound "
-            f"{k['bound_ms']:.4f} by {k['bound_by']})")
+            f"{k['bound_ms']:.4f} by {k['bound_by']}"
+            + (f"; {k['ms_without_states']:.4f} ms computing the entering "
+               f"states itself; bound with the per-head partials "
+               f"{k['bound_with_partials_ms']:.4f}" if k["name"] == "ssd_bwd"
+               else "") + ")")
     for k in kernels:
         if k["name"] in ("ssd", "flash_attention"):
             k["train_launches"] = full["launches"][k["name"]]

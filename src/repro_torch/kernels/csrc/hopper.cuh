@@ -4,13 +4,16 @@
 //
 // * mbarriers: init, arrive, arrive with an expected transaction count, and
 //   a parity wait;
-// * TMA: 3-d and 4-d tile loads from a CUtensorMap into shared memory,
-//   completing on an mbarrier, and the host-side encoding of a bf16 tensor
-//   map with a 128-byte swizzle;
+// * TMA: 3-d and 4-d tile loads from a CUtensorMap into shared memory and
+//   contiguous bulk copies, completing on an mbarrier, and the host-side
+//   encoding of a bf16 tensor map with a 128-byte swizzle;
 // * wgmma: the shared-memory matrix descriptor of a 128-byte-swizzled tile,
 //   fence / commit / wait, and m64nNk16 bf16 -> f32 products for N = 16 ..
 //   128 in steps of 16, A from shared memory (`wgmma_ss`) or from registers
-//   (`wgmma_rs`).
+//   (`wgmma_rs`);
+// * a read of one element of a swizzled tile (`swz_bf16`), and the
+//   host-side `enter()` that every entry point of the two sources calls
+//   first.
 //
 // The tile layout all kernels share.  A tile of R rows and up to 128 bf16
 // columns is loaded by TMA as ceil(cols / 64) "regions", each a box of 64
@@ -145,6 +148,28 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// A contiguous copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from global to shared memory, completing on an mbarrier.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Element (row r, column c) of a 128-byte-swizzled tile of 64-column
+// regions, `region` bytes apart (the layout above).
+__device__ __forceinline__ float swz_bf16(const uint8_t* tile, int region,
+                                          int r, int c) {
+  const int b = (c % kRegionCols) * 2;
+  const int off = (c / kRegionCols) * region + r * kRowBytes +
+                  (((b >> 4) ^ (r & 7)) << 4) + (b & 15);
+  return __bfloat162float(
+      *reinterpret_cast<const __nv_bfloat16*>(tile + off));
 }
 
 // ----------------------------------------------------------------- wgmma
@@ -677,6 +702,18 @@ inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Called first by every entry point: makes the device's context current on
+// the calling thread (a thread that has not used the runtime yet, such as
+// the autograd engine's device thread on its first backward, has none, and
+// the driver's tensor-map encoder then fails) and clears the thread's last
+// error, so that the error a launcher returns is its own launches'.
+inline void enter() {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  cudaSetDevice(dev);
+  (void)cudaGetLastError();
 }
 
 // Opt in to `bytes` of dynamic shared memory for `kernel`.

@@ -619,28 +619,67 @@ int launch(const void* q, const void* k, const void* v, void* out,
 // and JAX's autodiff).  From the saved q, k, v, the output o, its gradient
 // dO and the forward's row log-sum-exp lse (B, H, Sq) float32, with
 // P = exp(scale q.k - lse) (zero where masked):
-//   D  = rowsum(dO o O)                                  (flash_bwd_dot)
+//   D  = rowsum(dO o O)
 //   dS = P o (dO V^T - D), zero where masked
-//   dV = P^T dO,  dK = scale dS^T Q                       (flash_bwd_dkdv)
-//   dQ = scale dS K                                       (flash_bwd_dq)
+//   dV = P^T dO,  dK = scale dS^T Q,  dQ = scale dS K
 // A row that sees no key (a window past the end of the keys: q >=
 // Skv + window - 1) averages V with weights 1 / Skv in the plain version,
 // which an lse of -1e30 cannot express; its P is set to 1 / Skv directly,
-// and its dS is zero like every masked entry.
+// and its dS is zero like every masked entry.  Every sum is taken by one
+// block in a fixed order: no atomics, so the gradients do not depend on
+// scheduling (resumed training runs repeat their losses bitwise).
 //
-// Bound: operations.  The two passes redo the forward's q.k twice and do
-// five more products of the same size (dO.v twice, P^T dO, dS^T Q, dS K):
-// 3.5x the forward's products on the CUDA cores in float32, from operands
-// of either dtype.  A simple design first, right before fast: one block of
+// Bound: operations, as the forward (five products of the forward's size
+// against its two).  Two instances, chosen by dtype in the wrapper:
+//
+// bf16 (training; namespace fbwd3), every product on the tensor cores in
+// two kernels shaped like the forward, after a row pass (flash_bwd_rows:
+// lse log2(e) and D per query row, zero-padded to 128 rows):
+//   * flash_bwd_dq_bf16, one block per (b, h, 128 query rows), heaviest
+//     causal tile first: two consumer warpgroups of 64 rows and a producer
+//     warp; Q and dO are loaded once, K and V tiles of 64 keys stream
+//     through a 2-stage TMA ring.  Per tile S = Q K^T and dP = dO V^T
+//     (wgmma, K-major operands), P = exp2(S scale log2(e) - lse log2(e))
+//     on the accumulator layout (lse is known: no online softmax),
+//     dS = P o (dP - D) rounded to bf16 in registers, and dQ += dS K with
+//     K the MN-major B operand; tile i's S and dP are issued together
+//     with tile i-1's dS K (up to hd 80; one tile at a time above, where
+//     both would not fit the registers).  dQ is scaled in the epilogue.
+//   * flash_bwd_dkdv_bf16, one block per (b, KV head, 64 keys): one
+//     consumer warpgroup whose K and V tiles stay in shared memory, and a
+//     producer warp that streams Q and dO tiles of 64 rows (and their lse
+//     and D slices, by bulk copy) for each of the G query heads of the KV
+//     head, from the keys' diagonal down to the window's end, then the
+//     key-less tail rows.  Per tile S^T = K Q^T and dP^T = V dO^T, P^T and
+//     dS^T in registers with lse and D per column from shared memory, then
+//     dV += bf16(P^T) dO and dK += bf16(dS^T) Q (dO and Q MN-major).  The
+//     accumulators of dK and dV (2 x hd / 2 floats a thread) and the two
+//     score tiles take ~200 registers: a 160-thread block gets them, and
+//     two blocks share an SM.  (Two consumer warpgroups of 64 keys sharing
+//     one Q / dO stream, with setmaxnreg handing the producer's registers
+//     over, were tried: ptxas held the consumers to the 168 registers a
+//     384-thread block starts with, spilled, and ran slower on the card;
+//     issuing tile i's S^T with tile i-1's products needs more registers
+//     than two blocks an SM leave, and ran slower too; so did waiting for
+//     S^T and dP^T apart, to take P^T's exponentials under dP^T, in both
+//     kernels.)
+// The split costs seven products where FlashAttention-3's one kernel with
+// a float32 atomicAdd into dQ costs five; the atomics would make dQ depend
+// on scheduling.  P is rounded to bf16 before P^T dO, as the forward rounds
+// it before P V (models/attention.py:82); dS is rounded to bf16 as the
+// operand of dQ and dK (the CPU rehearsal in
+// tests/test_torch_bwd_rehearsal.py holds both roundings within 2e-2).
+// Only tiles that straddle the causal diagonal, the window's edge, a ragged
+// end or the key-less rows are masked.  hd = 80 takes the forward's layout: 64-column boxes, the second
+// zero-filled past column 80 by TMA, nothing padded in memory.
+//
+// float32 (parity checks; namespace fbwd): the CUDA-core body, one block of
 // 256 threads per 64-key tile (dK, dV) or 64-row query tile (dQ), tiles
 // staged in shared memory as float32 with odd row strides, each thread
 // owning a 4 x 4 block of the score tile and 4 rows x hd/16 columns of its
-// accumulators, as the float32 forward.  The dK/dV block walks the G query
-// heads of its KV head and the query tiles that can see its keys (and the
-// key-less tail rows), so every sum is taken by one block in a fixed
-// order: no atomics, and the gradients do not depend on scheduling.  In
-// the bf16 instance P is rounded to bf16 before P^T dO, as the forward
-// rounds it before P V (models/attention.py:82).
+// accumulators, as the float32 forward; q.k and dO.v are computed in both
+// passes.  The dK/dV block walks the G query heads of its KV head and the
+// query tiles that can see its keys (and the key-less tail rows).
 namespace fbwd {
 
 constexpr int kB = 64;         // query rows per q tile, keys per KV tile
@@ -648,18 +687,7 @@ constexpr int kThreads = 256;  // 16 x 16: ty picks rows, tx picks columns
 constexpr int kHdCols = kMaxHd / 16;
 
 __device__ __forceinline__ float f32(float x) { return x; }
-__device__ __forceinline__ float f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void put(float* p, float x) { *p = x; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-// P as the forward's P.V used it: bf16 in the bf16 instance
-__device__ __forceinline__ float like(float x, const float*) { return x; }
-__device__ __forceinline__ float like(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 struct Mask {
   int Sq, Skv, causal, window, dead;  // rows >= dead see no key
@@ -801,7 +829,7 @@ __global__ void __launch_bounds__(kThreads)
           const bool dead = qp < mk.Sq && kp < mk.Skv && qp >= mk.dead;
           const float p = dead ? inv_skv : ok ? expf(sc[i][j] - lse_s[r])
                                               : 0.f;
-          Ps[r * ldp + c] = like(p, q);
+          Ps[r * ldp + c] = p;
           dSs[r * ldp + c] = ok ? p * (dp[i][j] - D_s[r]) : 0.f;
         }
       }
@@ -982,6 +1010,546 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace fbwd
 
+// ----------------------------------------------------------- bf16 backward
+namespace fbwd3 {
+
+using namespace hopper;
+using fa3::kBq;
+using fa3::kLog2e;
+using fa3::kQRegion;
+using fbwd::Mask;
+
+constexpr int kBt = 64;                    // keys (dQ) / query rows (dK, dV)
+constexpr int kTRegion = kBt * kRowBytes;  // 64 columns x 64 rows: 8 KB
+constexpr int kStages = 2;
+constexpr int kDkdvConsumers = 128;       // the dK/dV kernel: one warpgroup
+constexpr int kDkdvThreads = kDkdvConsumers + 32;  // and a producer warp
+
+// rows (B, H, 2, Sqp) float32, Sqp = Sq rounded up to 128: lse log2(e) and
+// D = rowsum(dO o O) of each query row, zero past Sq.  One warp a row.
+__global__ void flash_bwd_rows(const __nv_bfloat16* __restrict__ o,
+                               const __nv_bfloat16* __restrict__ dout,
+                               const float* __restrict__ lse,
+                               float* __restrict__ rows, int Sq, int Sqp,
+                               int H, int hd, int total) {
+  const int r = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= total) return;
+  const int q = r % Sqp, bh = r / Sqp, h = bh % H, b = bh / H;
+  float d = 0.f, l = 0.f;
+  if (q < Sq) {
+    const size_t off = (((size_t)b * Sq + q) * H + h) * hd;
+    for (int c = lane; c < hd; c += 32)
+      d = fmaf(__bfloat162float(o[off + c]), __bfloat162float(dout[off + c]),
+               d);
+    l = lse[(size_t)bh * Sq + q] * kLog2e;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    d += __shfl_xor_sync(0xffffffffu, d, off);
+  if (lane == 0) {
+    rows[(size_t)bh * 2 * Sqp + q] = l;
+    rows[(size_t)bh * 2 * Sqp + Sqp + q] = d;
+  }
+}
+
+// Every (query, key) pair of the 64 x 64 tile [q0, q0 + 64) x [k0, k0 + 64)
+// is visible: the tile needs no mask.
+__device__ __forceinline__ bool full_tile(const Mask& mk, int q0, int k0) {
+  return q0 + kBt <= mk.Sq && k0 + kBt <= mk.Skv &&
+         (!mk.causal || k0 + kBt - 1 <= q0) &&
+         (mk.window <= 0 || k0 > q0 + kBt - 1 - mk.window);
+}
+
+// acc (64 x 64) = A B^T over HD columns: A rows `a` of a tile whose regions
+// are `ra` bytes apart, B rows `b` of regions `rb` apart, both K-major.
+template <int HD>
+__device__ __forceinline__ void issue_nt(float (&acc)[kBt / 2], uint32_t a,
+                                         int ra, uint32_t b, int rb) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss<kBt, 0, 0>(acc, desc_sw128(a + (kk / 4) * ra + col, 16, 1024),
+                        desc_sw128(b + (kk / 4) * rb + col, 16, 1024),
+                        kk > 0);
+  }
+}
+
+// acc (64 x HD) += A B over 64 rows of B: A in registers (bf16, 4 k-steps),
+// B the MN-major tile at `b` of 64 rows (regions kTRegion apart).
+template <int HD>
+__device__ __forceinline__ void issue_nn(float (&acc)[HD / 2],
+                                         const uint32_t (&a)[kBt / 16][4],
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kBt / 16; ++kk)
+    wgmma_rs<HD, 1>(acc, a[kk],
+                    desc_sw128(b + kk * 16 * kRowBytes, kTRegion, 1024), 1);
+}
+
+// A 64 x hd accumulator (scaled) as bf16 rows of a (B, S, heads, hd)
+// tensor: rows r0 and r0 + 8 of the thread, at or past `S` not stored.
+template <int HD>
+__device__ __forceinline__ void store_rows(const float (&acc)[HD / 2],
+                                           float mul,
+                                           __nv_bfloat16* __restrict__ dst,
+                                           int b, int r0, int S, int heads,
+                                           int head, int hd, int t4) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = r0 + 8 * r;
+    if (s >= S) continue;
+    __nv_bfloat16* row = dst + (((size_t)b * S + s) * heads + head) * hd;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col < hd)
+        *reinterpret_cast<uint32_t*>(row + col) = pack_bf16(
+            acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
+    }
+  }
+}
+
+// dS = P o (dP - D) of the 64-key tile at k0 from its scores sc and dP,
+// zero where masked, into the bf16 A operand fa (the dQ kernel's rows
+// row0 and row0 + 8 of a warpgroup whose first row is qmin; l2, dd: their
+// lse log2(e) and D).
+__device__ __forceinline__ void grad_tile(float (&sc)[kBt / 2],
+                                          const float (&dp)[kBt / 2],
+                                          uint32_t (&fa)[kBt / 16][4],
+                                          const Mask& mk, int k0, int qmin,
+                                          int row0, int t4,
+                                          const float (&l2)[2],
+                                          const float (&dd)[2],
+                                          float scale_log2) {
+  const bool full = full_tile(mk, qmin, k0);
+#pragma unroll
+  for (int j = 0; j < kBt / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      const float p = exp2_ftz(fmaf(sc[4 * j + e], scale_log2, -l2[r]));
+      const float g = p * (dp[4 * j + e] - dd[r]);
+      sc[4 * j + e] =
+          full || mk.ok(row0 + 8 * r, k0 + 8 * j + 2 * t4 + (e & 1)) ? g
+                                                                     : 0.f;
+    }
+#pragma unroll
+  for (int kk = 0; kk < kBt / 16; ++kk) a_frag(sc, kk, fa[kk]);
+}
+
+size_t dq_smem(int regions) {
+  return 1024 + (size_t)regions * (2 * kQRegion + 2 * kStages * kTRegion) +
+         64;
+}
+
+// dQ of rows [q0, q0 + 128) of head h: grid (query tiles, H, B), heaviest
+// causal tile first.  HD: hd rounded up to 16.
+template <int HD>
+__global__ void __launch_bounds__(fa3::kThreads, 1)
+    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const float* __restrict__ rows,
+                      __nv_bfloat16* __restrict__ dq, Mask mk, int Sqp,
+                      int H, int K, int hd, float scale, float scale_log2) {
+  constexpr int kReg = (HD + kRegionCols - 1) / kRegionCols;
+  constexpr int kQTile = kReg * kQRegion;
+  constexpr int kTile = kReg * kTRegion;  // one K or V tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + (((smem_u32(smem_raw) + 1023) & ~1023u) - smem_u32(smem_raw));
+  uint8_t* q_s = smem;
+  uint8_t* do_s = q_s + kQTile;
+  uint8_t* k_s = do_s + kQTile;          // kStages tiles
+  uint8_t* v_s = k_s + kStages * kTile;  // kStages tiles
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(v_s + kStages * kTile);
+  uint64_t* full = bar_q + 1;
+  uint64_t* empty = full + kStages;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBq;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / K);
+  const int tid = threadIdx.x;
+
+  // key tiles [t_begin, t_end): the forward's, in tiles of 64 keys
+  const int kv_end = mk.causal ? min(mk.Skv, q0 + kBq) : mk.Skv;
+  const int t_end = (kv_end + kBt - 1) / kBt;
+  int t_begin = mk.window > 0 ? max(0, q0 - mk.window + 1) / kBt : 0;
+  t_begin = min(t_begin, t_end - 1);
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], fa3::kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= fa3::kConsumers) {  // producer warp: one thread issues loads
+    if (tid == fa3::kConsumers) {
+      mbar_expect_tx(bar_q, 2 * kQTile);
+      for (int r = 0; r < kReg; ++r) {
+        tma_load_4d(q_s + r * kQRegion, &tq, bar_q, r * kRegionCols, h, q0,
+                    b);
+        tma_load_4d(do_s + r * kQRegion, &tdo, bar_q, r * kRegionCols, h, q0,
+                    b);
+      }
+      for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+        const int s = i % kStages;
+        mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * kTile);
+        for (int r = 0; r < kReg; ++r) {
+          tma_load_4d(k_s + s * kTile + r * kTRegion, &tk, &full[s],
+                      r * kRegionCols, kvh, t * kBt, b);
+          tma_load_4d(v_s + s * kTile + r * kTRegion, &tv, &full[s],
+                      r * kRegionCols, kvh, t * kBt, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows q0 + 64 wg .. + 63; this thread
+  // holds rows row0 and row0 + 8 of the accumulators
+  const int wg = tid / 128;
+  const int w = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int t4 = lane % 4;
+  const int qmin = q0 + wg * 64;
+  const int row0 = qmin + w * 16 + lane / 4;
+  const uint32_t qa = smem_u32(q_s) + wg * 64 * kRowBytes;
+  const uint32_t da = smem_u32(do_s) + wg * 64 * kRowBytes;
+  const float* rw = rows + ((size_t)b * H + h) * 2 * Sqp;
+  const float l2[2] = {rw[row0], rw[row0 + 8]};  // rows < Sqp
+  const float dd[2] = {rw[Sqp + row0], rw[Sqp + row0 + 8]};
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+  float sc[kBt / 2], dp[kBt / 2];  // S and dP of the newest tile
+  uint32_t fa[kBt / 16][4];        // dS (of the tile before it), bf16
+
+  mbar_wait(bar_q, 0);
+  if constexpr (HD > 80) {
+    // one tile at a time: S, dP, dS and the tile before's dS at once
+    // would not fit the 168 registers at these widths
+    for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+      const int s = i % kStages;
+      mbar_wait(&full[s], (i / kStages) & 1);
+      wgmma_fence();
+      issue_nt<HD>(sc, qa, kQRegion, smem_u32(k_s + s * kTile), kTRegion);
+      issue_nt<HD>(dp, da, kQRegion, smem_u32(v_s + s * kTile), kTRegion);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      grad_tile(sc, dp, fa, mk, t * kBt, qmin, row0, t4, l2, dd,
+                scale_log2);
+      fence_regs(acc);
+      wgmma_fence();
+      issue_nn<HD>(acc, fa, smem_u32(k_s + s * kTile));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[s]);
+    }
+  } else {
+    mbar_wait(&full[0], 0);
+    wgmma_fence();
+    issue_nt<HD>(sc, qa, kQRegion, smem_u32(k_s), kTRegion);
+    issue_nt<HD>(dp, da, kQRegion, smem_u32(v_s), kTRegion);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    grad_tile(sc, dp, fa, mk, t_begin * kBt, qmin, row0, t4, l2, dd,
+              scale_log2);
+    for (int t = t_begin + 1, i = 1; t < t_end; ++t, ++i) {
+      const int s = i % kStages, sp = (i - 1) % kStages;
+      mbar_wait(&full[s], (i / kStages) & 1);
+      fence_regs(acc);
+      wgmma_fence();
+      issue_nt<HD>(sc, qa, kQRegion, smem_u32(k_s + s * kTile), kTRegion);
+      issue_nt<HD>(dp, da, kQRegion, smem_u32(v_s + s * kTile), kTRegion);
+      issue_nn<HD>(acc, fa, smem_u32(k_s + sp * kTile));  // dS_i-1 K_i-1
+      wgmma_commit();
+      wgmma_wait<0>();  // all three are in: stage i-1 is free
+      fence_regs(sc);
+      fence_regs(dp);
+      fence_regs(acc);
+      mbar_arrive(&empty[sp]);
+      grad_tile(sc, dp, fa, mk, t * kBt, qmin, row0, t4, l2, dd,
+                scale_log2);
+    }
+    const int last = (t_end - 1 - t_begin) % kStages;
+    fence_regs(acc);
+    wgmma_fence();
+    issue_nn<HD>(acc, fa, smem_u32(k_s + last * kTile));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[last]);
+  }
+  store_rows<HD>(acc, scale, dq, b, row0, mk.Sq, H, h, hd, t4);
+}
+
+size_t dkdv_smem(int regions) {
+  return 1024 + (size_t)regions * (2 + 2 * kStages) * kTRegion +
+         kStages * 2 * kBt * sizeof(float) + 64;
+}
+
+// The query tiles the dK/dV block of keys [k0, k0 + 64) visits, in order:
+// for each of the G query heads of its KV head, the 64-row tiles from the
+// keys' diagonal (causal) down to the window's end, and those holding rows
+// that see no key.  next() steps to the next one (false past the last);
+// g and q0 name the current one.
+struct QWalk {
+  int G, t0, n_qt, hi, dead, g, t;
+  __device__ __forceinline__ QWalk(const Mask& mk, int k0, int G_)
+      : G(G_),
+        t0((mk.causal ? k0 : 0) / kBt),
+        n_qt((mk.Sq + kBt - 1) / kBt),
+        hi(mk.window > 0 ? min(mk.Sq, k0 + kBt - 1 + mk.window) : mk.Sq),
+        dead(mk.dead),
+        g(0),
+        t(t0 - 1) {}
+  __device__ __forceinline__ bool next() {
+    for (;;) {
+      if (++t >= n_qt) {
+        t = t0;
+        if (++g >= G) return false;
+      }
+      if (t < n_qt && !(t * kBt >= hi && t * kBt + kBt <= dead)) return true;
+    }
+  }
+  __device__ __forceinline__ int q0() const { return t * kBt; }
+};
+
+// P^T and dS^T of a 64-key x 64-row tile from its S^T (st) and dP^T (dpt)
+// into the bf16 A operands pa and sa: the keys key0 and key0 + 8 of the
+// thread, rows q0 + the columns, lse log2(e) and D of the rows in rw.  A
+// row that sees no key takes P = 1 / Skv and dS = 0.
+__device__ __forceinline__ void grad_tile_t(
+    float (&st)[kBt / 2], float (&dpt)[kBt / 2], uint32_t (&pa)[kBt / 16][4],
+    uint32_t (&sa)[kBt / 16][4], const Mask& mk, int q0, int kmin, int key0,
+    int t4, const float* rw, float scale_log2, float inv_skv) {
+  const bool full = full_tile(mk, q0, kmin);
+#pragma unroll
+  for (int j = 0; j < kBt / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * t4 + (e & 1);
+      const float p = exp2_ftz(fmaf(st[4 * j + e], scale_log2, -rw[col]));
+      const float ds = p * (dpt[4 * j + e] - rw[kBt + col]);
+      const int qp = q0 + col, kp = key0 + 8 * (e >> 1);
+      const bool ok = full || mk.ok(qp, kp);
+      st[4 * j + e] = ok ? p
+                      : qp >= mk.dead && qp < mk.Sq && kp < mk.Skv ? inv_skv
+                                                                   : 0.f;
+      dpt[4 * j + e] = ok ? ds : 0.f;
+    }
+#pragma unroll
+  for (int kk = 0; kk < kBt / 16; ++kk) {
+    a_frag(st, kk, pa[kk]);
+    a_frag(dpt, kk, sa[kk]);
+  }
+}
+
+// dK and dV of keys [k0, k0 + 64) of KV head kvh: grid (key tiles, K, B).
+template <int HD>
+__global__ void __launch_bounds__(kDkdvThreads, 1)
+    flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const float* __restrict__ rows,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, Mask mk, int Sqp,
+                        int H, int K, int hd, float scale, float scale_log2) {
+  constexpr int kReg = (HD + kRegionCols - 1) / kRegionCols;
+  constexpr int kTile = kReg * kTRegion;  // 64 keys or 64 query rows
+  constexpr int kStage = 2 * kTile;        // Q, dO
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + (((smem_u32(smem_raw) + 1023) & ~1023u) - smem_u32(smem_raw));
+  uint8_t* k_s = smem;
+  uint8_t* v_s = k_s + kTile;
+  uint8_t* ring = v_s + kTile;                              // kStages
+  float* rows_s = reinterpret_cast<float*>(ring + kStages * kStage);
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(rows_s + kStages * 2 * kBt);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + kStages;
+
+  const int k0 = blockIdx.x * kBt;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / K;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kDkdvConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kDkdvConsumers) {  // producer warp: one thread loads
+    if (tid == kDkdvConsumers) {
+      mbar_expect_tx(bar_kv, 2 * kTile);
+      for (int r = 0; r < kReg; ++r) {
+        tma_load_4d(k_s + r * kTRegion, &tk, bar_kv, r * kRegionCols, kvh, k0,
+                    b);
+        tma_load_4d(v_s + r * kTRegion, &tv, bar_kv, r * kRegionCols, kvh, k0,
+                    b);
+      }
+      QWalk walk(mk, k0, G);
+      for (int n = 0; walk.next(); ++n) {
+        const int s = n % kStages, h = kvh * G + walk.g, q0 = walk.q0();
+        mbar_wait(&empty[s], ((n / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], kStage + 2 * kBt * sizeof(float));
+        uint8_t* st = ring + s * kStage;
+        for (int r = 0; r < kReg; ++r) {
+          tma_load_4d(st + r * kTRegion, &tq, &full[s], r * kRegionCols, h,
+                      q0, b);
+          tma_load_4d(st + kTile + r * kTRegion, &tdo, &full[s],
+                      r * kRegionCols, h, q0, b);
+        }
+        const float* rw = rows + ((size_t)b * H + h) * 2 * Sqp + q0;
+        bulk_load(rows_s + s * 2 * kBt, rw, kBt * sizeof(float), &full[s]);
+        bulk_load(rows_s + s * 2 * kBt + kBt, rw + Sqp, kBt * sizeof(float),
+                  &full[s]);
+      }
+    }
+  } else {
+    // this thread holds keys key0 and key0 + 8 of the accumulators
+    const int w = tid / 32;
+    const int lane = tid % 32;
+    const int t4 = lane % 4;
+    const int key0 = k0 + w * 16 + lane / 4;
+    const uint32_t ka = smem_u32(k_s), va = smem_u32(v_s);
+    const float inv_skv = 1.f / mk.Skv;
+
+    float adk[HD / 2], adv[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) adk[i] = adv[i] = 0.f;
+    mbar_wait(bar_kv, 0);
+    QWalk walk(mk, k0, G);  // the producer's walk
+    for (int n = 0; walk.next(); ++n) {
+      const int s = n % kStages;
+      mbar_wait(&full[s], (n / kStages) & 1);
+      const uint32_t qt = smem_u32(ring + s * kStage), dt = qt + kTile;
+      float st[kBt / 2], dpt[kBt / 2];  // S^T, dP^T: keys x query rows
+      wgmma_fence();
+      issue_nt<HD>(st, ka, kTRegion, qt, kTRegion);
+      issue_nt<HD>(dpt, va, kTRegion, dt, kTRegion);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      uint32_t pa[kBt / 16][4], sa[kBt / 16][4];  // P^T, dS^T
+      grad_tile_t(st, dpt, pa, sa, mk, walk.q0(), k0, key0, t4,
+                  rows_s + s * 2 * kBt, scale_log2, inv_skv);
+      fence_regs(adk);
+      fence_regs(adv);
+      wgmma_fence();
+      issue_nn<HD>(adv, pa, dt);
+      issue_nn<HD>(adk, sa, qt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(adk);
+      fence_regs(adv);
+      mbar_arrive(&empty[s]);
+    }
+    store_rows<HD>(adk, scale, dk, b, key0, mk.Skv, K, kvh, hd, t4);
+    store_rows<HD>(adv, 1.f, dv, b, key0, mk.Skv, K, kvh, hd, t4);
+  }
+}
+
+template <int HD>
+int launch_hd(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const float* lse, float* rows, void* dq,
+              void* dk, void* dv, int B, int Sq, int Skv, int H, int K,
+              int hd, int causal, int window, float scale,
+              cudaStream_t stream) {
+  const int Sqp = round_up(Sq, kBq);
+  const int total = B * H * Sqp;
+  flash_bwd_rows<<<(total + 7) / 8, 256, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, rows, Sq, Sqp, H, hd,
+      total);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  // 4-d maps (hd, heads, S, B) as the forward's, boxes of 128 and 64 rows
+  const cuuint64_t e = 2;
+  const cuuint64_t qdims[4] = {(cuuint64_t)hd, (cuuint64_t)H, (cuuint64_t)Sq,
+                               (cuuint64_t)B};
+  const cuuint64_t qstr[3] = {hd * e, H * hd * e, (cuuint64_t)Sq * H * hd * e};
+  const cuuint64_t kdims[4] = {(cuuint64_t)hd, (cuuint64_t)K,
+                               (cuuint64_t)Skv, (cuuint64_t)B};
+  const cuuint64_t kstr[3] = {hd * e, K * hd * e,
+                              (cuuint64_t)Skv * K * hd * e};
+  const cuuint32_t box128[4] = {kRegionCols, 1, kBq, 1};
+  const cuuint32_t box64[4] = {kRegionCols, 1, kBt, 1};
+  CUtensorMap q128, do128, k64, v64, q64, do64;
+  err = encode_bf16_map(&q128, q, 4, qdims, qstr, box128);
+  if (!err) err = encode_bf16_map(&do128, dout, 4, qdims, qstr, box128);
+  if (!err) err = encode_bf16_map(&q64, q, 4, qdims, qstr, box64);
+  if (!err) err = encode_bf16_map(&do64, dout, 4, qdims, qstr, box64);
+  if (!err) err = encode_bf16_map(&k64, k, 4, kdims, kstr, box64);
+  if (!err) err = encode_bf16_map(&v64, v, 4, kdims, kstr, box64);
+  if (err) return err;
+  const Mask mk{Sq, Skv, causal, window,
+                window > 0 ? Skv + window - 1 : 0x7fffffff};
+  const int regions = (HD + kRegionCols - 1) / kRegionCols;
+  const float scale_log2 = scale * kLog2e;
+  size_t smem = dkdv_smem(regions);
+  err = set_smem(flash_bwd_dkdv_bf16<HD>, smem);
+  if (err) return err;
+  flash_bwd_dkdv_bf16<HD>
+      <<<dim3((Skv + kBt - 1) / kBt, K, B), kDkdvThreads, smem, stream>>>(
+          k64, v64, q64, do64, rows, static_cast<__nv_bfloat16*>(dk),
+          static_cast<__nv_bfloat16*>(dv), mk, Sqp, H, K, hd, scale,
+          scale_log2);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  smem = dq_smem(regions);
+  err = set_smem(flash_bwd_dq_bf16<HD>, smem);
+  if (err) return err;
+  flash_bwd_dq_bf16<HD>
+      <<<dim3((Sq + kBq - 1) / kBq, H, B), fa3::kThreads, smem, stream>>>(
+          q128, do128, k64, v64, rows, static_cast<__nv_bfloat16*>(dq), mk,
+          Sqp, H, K, hd, scale, scale_log2);
+  return (int)cudaGetLastError();
+}
+
+// Three launches on `stream`; rows (B, H, 2, round_up(Sq, 128)) float32 is
+// the wrapper's scratch.
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* rows, void* dq,
+           void* dk, void* dv, int B, int Sq, int Skv, int H, int K, int hd,
+           int causal, int window, float scale, cudaStream_t stream) {
+#define KSP_HD(n)                                                          \
+  case n:                                                                  \
+    return launch_hd<n>(q, k, v, o, dout, lse, rows, dq, dk, dv, B, Sq,    \
+                        Skv, H, K, hd, causal, window, scale, stream);
+  switch (round_up(hd, 16)) {
+    KSP_HD(16) KSP_HD(32) KSP_HD(48) KSP_HD(64)
+    KSP_HD(80) KSP_HD(96) KSP_HD(112) KSP_HD(128)
+  }
+#undef KSP_HD
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace fbwd3
+
 extern "C" {
 
 // Returns cudaGetLastError() after the launch: nonzero means the launch was
@@ -992,6 +1560,7 @@ int ksp_flash_attention_f32(const void* q, const void* k, const void* v,
                             void* out, void* lse, int B, int Sq, int Skv,
                             int H, int K, int hd, int causal, int window,
                             float scale, cudaStream_t stream) {
+  hopper::enter();
   return launch<float>(q, k, v, out, static_cast<float*>(lse), B, Sq, Skv,
                        H, K, hd, causal, window, scale, stream);
 }
@@ -1000,18 +1569,21 @@ int ksp_flash_attention_bf16(const void* q, const void* k, const void* v,
                              void* out, void* lse, int B, int Sq, int Skv,
                              int H, int K, int hd, int causal, int window,
                              float scale, cudaStream_t stream) {
+  hopper::enter();
   return fa3::launch(q, k, v, out, static_cast<float*>(lse), B, Sq, Skv, H,
                      K, hd, causal, window, scale, stream);
 }
 
 // The backward: dq, dk, dv in the inputs' dtype from q, k, v, o, dO and
-// the forward's lse; D (B, H, Sq) float32 is scratch.  Same checks.
+// the forward's lse; D is float32 scratch of B * H * 2 * round_up(Sq, 128)
+// elements (the float32 instance uses the first B * H * Sq).  Same checks.
 int ksp_flash_attention_bwd_f32(const void* q, const void* k, const void* v,
                                 const void* o, const void* dout,
                                 const void* lse, void* D, void* dq, void* dk,
                                 void* dv, int B, int Sq, int Skv, int H,
                                 int K, int hd, int causal, int window,
                                 float scale, cudaStream_t stream) {
+  hopper::enter();
   return fbwd::launch<float>(q, k, v, o, dout, static_cast<const float*>(lse),
                              static_cast<float*>(D), dq, dk, dv, B, Sq, Skv,
                              H, K, hd, causal, window, scale, stream);
@@ -1023,10 +1595,10 @@ int ksp_flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                  void* dk, void* dv, int B, int Sq, int Skv,
                                  int H, int K, int hd, int causal, int window,
                                  float scale, cudaStream_t stream) {
-  return fbwd::launch<__nv_bfloat16>(
-      q, k, v, o, dout, static_cast<const float*>(lse),
-      static_cast<float*>(D), dq, dk, dv, B, Sq, Skv, H, K, hd, causal,
-      window, scale, stream);
+  hopper::enter();
+  return fbwd3::launch(q, k, v, o, dout, static_cast<const float*>(lse),
+                       static_cast<float*>(D), dq, dk, dv, B, Sq, Skv, H, K,
+                       hd, causal, window, scale, stream);
 }
 
 }  // extern "C"

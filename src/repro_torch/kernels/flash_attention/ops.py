@@ -26,10 +26,14 @@ Training: when autograd records (grad enabled and an input that requires
 grad), :func:`flash_attention` goes through a ``torch.autograd.Function``
 whose forward also has the kernel write the row log-sum-exp ``lse`` (a
 nullable output, left null on the serving path) and whose backward is
-:func:`flash_attention_bwd`: on CUDA the hand-written backward kernel
-(``csrc/flash_attention.cu``, namespace ``fbwd``, both dtypes on the CUDA
-cores), counted by ``LAUNCHES["flash_attention_bwd"]``; on the CPU
-``ref.flash_attention_bwd``.
+:func:`flash_attention_bwd`: on CUDA the hand-written backward kernels
+(``csrc/flash_attention.cu``), counted by ``LAUNCHES["flash_attention_bwd"]``
+once per call; on the CPU ``ref.flash_attention_bwd``.  The bf16 instance
+(namespace ``fbwd3``) runs every product on the tensor cores in a dQ kernel
+and a dK/dV kernel, without atomics (each gradient is summed by one block in
+a fixed order), P and dS rounded to bf16 as operands; the float32 instance
+(namespace ``fbwd``) is the CUDA-core body kept for the float32 parity
+checks.
 """
 
 from __future__ import annotations
@@ -163,8 +167,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                        window=window)
+    if q.dtype == torch.bfloat16:
+        build.check_tma(hd, do=do)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    D = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # row scratch: D (B, H, Sq) for the float32 kernels; lse log2(e) and D,
+    # each padded to whole 128-row tiles, for the bf16 ones
+    D = torch.empty(B * H * 2 * -(-Sq // 128) * 128, dtype=torch.float32,
+                    device=q.device)
     lib = build.load(SOURCE, SIGNATURES)
     build.launch(lib, f"ksp_flash_attention_bwd_{_SUFFIX[q.dtype]}",
                  q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),

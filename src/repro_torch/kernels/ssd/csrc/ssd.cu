@@ -345,18 +345,19 @@ __device__ __forceinline__ void chunk_cumsum(const __nv_bfloat16* a,
 
 // Pass 1, one block per (chunk, h, b): the chunk's own state
 //   s_c = x^T (B o exp(cum_last - cum))     (P x N, float32)
-// and its cumsum of a.  x and B stream through the ring in 64-row
-// sub-tiles; B o decay is rewritten in shared memory as a bf16 hi part (in
-// place) plus a bf16 lo part, so the product keeps ~16 bits of the decayed
-// B (two wgmmas, x^T and B MN-major).  NP: N rounded up to 16; MT: 64-row
-// tiles of P.
-template <int NP, int MT>
-__global__ void __launch_bounds__(kThreads)
-    ssd_states(const __grid_constant__ CUtensorMap tx,
-               const __grid_constant__ CUtensorMap tb,
-               const __nv_bfloat16* __restrict__ a,
-               float* __restrict__ states, float* __restrict__ cum_out,
-               int S, int H, int P, int G, int N, int nc) {
+// and its cumsum of a (into cum_out).  x and B stream
+// through the ring in 64-row sub-tiles; B o decay is rewritten in shared
+// memory as a bf16 hi part (in place) plus a bf16 lo part, so the product
+// keeps ~16 bits of the decayed B (two wgmmas, x^T and B MN-major).  With
+// OWN the decay is exp(cum) instead: fed dY and C, the block gives the
+// backward's share of the chunk in the gradient of the state entering it,
+// dY^T (C o exp(cum)) (the kernel ssd_bwd_own).  NP: N rounded up to 16;
+// MT: 64-row tiles of P.
+template <int NP, int MT, bool OWN>
+__device__ __forceinline__ void chunk_states(
+    const CUtensorMap& tx, const CUtensorMap& tb,
+    const __nv_bfloat16* __restrict__ a, float* __restrict__ states,
+    float* __restrict__ cum_out, int S, int H, int P, int G, int N, int nc) {
   constexpr int NR = (NP + kRegionCols - 1) / kRegionCols;
   constexpr int kX = MT * kRegion;
   constexpr int kStage = kX + NR * kRegion;
@@ -406,10 +407,9 @@ __global__ void __launch_bounds__(kThreads)
   chunk_cumsum(a, ((size_t)b * S + row0) * H + h, rows, H, cum, warp_tot,
                tid);
   const float clast = cum[kT - 1];
-  float* cum_dst = cum_out + (((size_t)b * H + h) * nc + c) * kT;
   for (int r = tid; r < kT; r += kConsumers) {
-    dec[r] = expf(clast - cum[r]);
-    cum_dst[r] = cum[r];
+    dec[r] = expf(OWN ? cum[r] : clast - cum[r]);
+    if (!OWN) cum_out[(((size_t)b * H + h) * nc + c) * kT + r] = cum[r];
   }
 
   float acc[MT][NP / 2];
@@ -482,6 +482,25 @@ __global__ void __launch_bounds__(kThreads)
         const int n = 8 * j + 2 * (lane % 4) + (e & 1);
         if (p < P && n < N) dst[(size_t)p * N + n] = acc[m][4 * j + e];
       }
+}
+
+template <int NP, int MT>
+__global__ void __launch_bounds__(kThreads)
+    ssd_states(const __grid_constant__ CUtensorMap tx,
+               const __grid_constant__ CUtensorMap tb,
+               const __nv_bfloat16* __restrict__ a,
+               float* __restrict__ states, float* __restrict__ cum_out,
+               int S, int H, int P, int G, int N, int nc) {
+  chunk_states<NP, MT, false>(tx, tb, a, states, cum_out, S, H, P, G, N, nc);
+}
+
+template <int NP, int MT>
+__global__ void __launch_bounds__(kThreads)
+    ssd_bwd_own(const __grid_constant__ CUtensorMap tdy,
+                const __grid_constant__ CUtensorMap tc,
+                const __nv_bfloat16* __restrict__ a, float* __restrict__ own,
+                int S, int H, int P, int G, int N, int nc) {
+  chunk_states<NP, MT, true>(tdy, tc, a, own, nullptr, S, H, P, G, N, nc);
 }
 
 // Pass 2, per (b, h) and state element: the state entering each chunk,
@@ -699,18 +718,47 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int NP, int MT>
-int launch_states(const CUtensorMap& tx, const CUtensorMap& tb,
-                  const void* a, float* states, float* cum, int B, int S,
-                  int H, int P, int G, int N, int nc, cudaStream_t stream) {
+int launch_states_np(const CUtensorMap& tx, const CUtensorMap& tb,
+                     const void* a, float* states, float* cum, int B, int S,
+                     int H, int P, int G, int N, int nc, int own_grad,
+                     cudaStream_t stream) {
   constexpr int NR = (NP + kRegionCols - 1) / kRegionCols;
   const size_t smem = 1024 + (size_t)(kStages * (MT + NR) + NR) * kRegion +
                       (2 * kT + 8) * sizeof(float) + 64;
-  int err = set_smem(ssd_states<NP, MT>, smem);
+  const dim3 grid(nc, H, B);
+  const __nv_bfloat16* ab = static_cast<const __nv_bfloat16*>(a);
+  int err = own_grad ? set_smem(ssd_bwd_own<NP, MT>, smem)
+                     : set_smem(ssd_states<NP, MT>, smem);
   if (err) return err;
-  ssd_states<NP, MT><<<dim3(nc, H, B), kThreads, smem, stream>>>(
-      tx, tb, static_cast<const __nv_bfloat16*>(a), states, cum, S, H, P, G,
-      N, nc);
+  if (own_grad)
+    ssd_bwd_own<NP, MT><<<grid, kThreads, smem, stream>>>(
+        tx, tb, ab, states, S, H, P, G, N, nc);
+  else
+    ssd_states<NP, MT><<<grid, kThreads, smem, stream>>>(
+        tx, tb, ab, states, cum, S, H, P, G, N, nc);
   return (int)cudaGetLastError();
+}
+
+// Pass 1 over tx (x, or dY) and tb (B, or C): the chunk states and cum
+// (ssd_states), or with own_grad the chunks' shares of the state gradient
+// (ssd_bwd_own), into `states`.
+int launch_states(const CUtensorMap& tx, const CUtensorMap& tb,
+                  const void* a, float* states, float* cum, int B, int S,
+                  int H, int P, int G, int N, int nc, int own_grad,
+                  cudaStream_t stream) {
+#define KSP_STATES(np, mt)                                                 \
+  case np * 4 + mt:                                                        \
+    return launch_states_np<np, mt>(tx, tb, a, states, cum, B, S, H, P, G, \
+                                    N, nc, own_grad, stream);
+  switch (round_up(N, 16) * 4 + (P > 64 ? 2 : 1)) {
+    KSP_STATES(16, 1) KSP_STATES(32, 1) KSP_STATES(48, 1) KSP_STATES(64, 1)
+    KSP_STATES(80, 1) KSP_STATES(96, 1) KSP_STATES(112, 1)
+    KSP_STATES(128, 1) KSP_STATES(16, 2) KSP_STATES(32, 2)
+    KSP_STATES(48, 2) KSP_STATES(64, 2) KSP_STATES(80, 2) KSP_STATES(96, 2)
+    KSP_STATES(112, 2) KSP_STATES(128, 2)
+  }
+#undef KSP_STATES
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int PP>
@@ -731,6 +779,49 @@ int launch_scan(const CUtensorMap& tc, const CUtensorMap& tb,
   return (int)cudaGetLastError();
 }
 
+// The tensor map of a (B, S, heads, width) bf16 tensor in 64-column x
+// 64-row boxes (the model layout: a tile's rows heads * width apart).
+int encode_rows(CUtensorMap* map, const void* base, int B, int S, int heads,
+                int width) {
+  const cuuint64_t e = 2;  // bytes of a bf16
+  const cuuint32_t box[4] = {kRegionCols, 1, kR, 1};
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t str[3] = {width * e, heads * width * e,
+                             (cuuint64_t)S * heads * width * e};
+  return encode_bf16_map(map, base, 4, dims, str, box);
+}
+
+// The tensor map of `count` (P, N) bf16 states (s_in and its hi / lo
+// layout (B, nc, H, 2, P, N)), a box of 64 columns x `rows` rows (rows past
+// P are zero-filled).
+int encode_states(CUtensorMap* map, const void* base, int P, int N,
+                  int count, int rows) {
+  const cuuint64_t e = 2;
+  const cuuint32_t box[3] = {kRegionCols, (cuuint32_t)rows, 1};
+  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)P,
+                              (cuuint64_t)count};
+  const cuuint64_t str[2] = {N * e, (cuuint64_t)P * N * e};
+  return encode_bf16_map(map, base, 3, dims, str, box);
+}
+
+// Passes 1 and 2: s_in (B, nc, H, 2, P, N) bf16 (hi, lo), cum (B, H, nc, kT)
+// float32 and the final state, with `states` (B, nc, H, P, N) float32 as
+// scratch.
+int states_pass(const CUtensorMap& tx, const CUtensorMap& tb, const void* a,
+                float* states, void* s_in, float* cum, void* final_state,
+                int B, int S, int H, int P, int G, int N, cudaStream_t stream) {
+  const int nc = (S + kT - 1) / kT;
+  int err =
+      launch_states(tx, tb, a, states, cum, B, S, H, P, G, N, nc, 0, stream);
+  if (err) return err;
+  const int PN = P * N;
+  ssd_pass<<<dim3((PN + 255) / 256, H, B), 256, 0, stream>>>(
+      states, cum, static_cast<__nv_bfloat16*>(s_in),
+      static_cast<float*>(final_state), H, PN, nc);
+  return (int)cudaGetLastError();
+}
+
 // The three passes of one ssd() call, on `stream`.  Scratch from the
 // wrapper: states (B, nc, H, P, N) float32, s_in (B, nc, H, 2, P, N) bf16
 // (hi, lo), cum (B, H, nc, kT) float32, with nc = ceil(S / kT).
@@ -738,56 +829,22 @@ int launch(const void* x, const void* a, const void* b, const void* c,
            void* y, void* final_state, void* states, void* s_in, void* cum,
            int B, int S, int H, int P, int G, int N, cudaStream_t stream) {
   const int nc = (S + kT - 1) / kT;
-  const cuuint64_t e = 2;  // bytes of a bf16
-  const cuuint32_t box[4] = {kRegionCols, 1, kR, 1};
-  const cuuint64_t xdims[4] = {(cuuint64_t)P, (cuuint64_t)H, (cuuint64_t)S,
-                               (cuuint64_t)B};
-  const cuuint64_t xstr[3] = {P * e, H * P * e, (cuuint64_t)S * H * P * e};
-  const cuuint64_t bdims[4] = {(cuuint64_t)N, (cuuint64_t)G, (cuuint64_t)S,
-                               (cuuint64_t)B};
-  const cuuint64_t bstr[3] = {N * e, G * N * e, (cuuint64_t)S * G * N * e};
-  const int PP = round_up(P, 16);
-  const cuuint32_t sbox[3] = {kRegionCols, (cuuint32_t)PP, 1};
-  const cuuint64_t sdims[3] = {(cuuint64_t)N, (cuuint64_t)P,
-                               (cuuint64_t)B * nc * H * 2};
-  const cuuint64_t sstr[2] = {N * e, (cuuint64_t)P * N * e};
   CUtensorMap tx, tb, tc, ts;
-  int err = encode_bf16_map(&tx, x, 4, xdims, xstr, box);
-  if (!err) err = encode_bf16_map(&tb, b, 4, bdims, bstr, box);
-  if (!err) err = encode_bf16_map(&tc, c, 4, bdims, bstr, box);
-  if (!err) err = encode_bf16_map(&ts, s_in, 3, sdims, sstr, sbox);
+  int err = encode_rows(&tx, x, B, S, H, P);
+  if (!err) err = encode_rows(&tb, b, B, S, G, N);
+  if (!err) err = encode_rows(&tc, c, B, S, G, N);
+  if (!err)
+    err = encode_states(&ts, s_in, P, N, B * nc * H * 2, round_up(P, 16));
   if (err) return err;
-
-  float* st = static_cast<float*>(states);
   float* cm = static_cast<float*>(cum);
-#define KSP_STATES(np, mt)                                                 \
-  case np * 4 + mt:                                                        \
-    err = launch_states<np, mt>(tx, tb, a, st, cm, B, S, H, P, G, N, nc,  \
-                                stream);                                   \
-    break;
-  switch (round_up(N, 16) * 4 + (P > 64 ? 2 : 1)) {
-    KSP_STATES(16, 1) KSP_STATES(32, 1) KSP_STATES(48, 1) KSP_STATES(64, 1)
-    KSP_STATES(80, 1) KSP_STATES(96, 1) KSP_STATES(112, 1)
-    KSP_STATES(128, 1) KSP_STATES(16, 2) KSP_STATES(32, 2)
-    KSP_STATES(48, 2) KSP_STATES(64, 2) KSP_STATES(80, 2) KSP_STATES(96, 2)
-    KSP_STATES(112, 2) KSP_STATES(128, 2)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef KSP_STATES
+  err = states_pass(tx, tb, a, static_cast<float*>(states), s_in, cm,
+                    final_state, B, S, H, P, G, N, stream);
   if (err) return err;
-
-  const int PN = P * N;
-  ssd_pass<<<dim3((PN + 255) / 256, H, B), 256, 0, stream>>>(
-      st, cm, static_cast<__nv_bfloat16*>(s_in),
-      static_cast<float*>(final_state), H, PN, nc);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-
 #define KSP_SCAN(pp)                                                       \
   case pp:                                                                 \
     return launch_scan<pp>(tc, tb, tx, ts, cm, y, B, S, H, P, G, N, nc,    \
                            stream);
-  switch (PP) {
+  switch (round_up(P, 16)) {
     KSP_SCAN(16) KSP_SCAN(32) KSP_SCAN(48) KSP_SCAN(64)
     KSP_SCAN(80) KSP_SCAN(96) KSP_SCAN(112) KSP_SCAN(128)
   }
@@ -802,19 +859,54 @@ int launch(const void* x, const void* a, const void* b, const void* c,
 // The backward of both instances (no Pallas counterpart: the reference
 // trains through the XLA form models/mamba2.py::ssd_chunked and JAX's
 // autodiff).  From x, a, B, C and dy (and the final state's gradient, or
-// zero) it gives dx, da, dB and dC in the inputs' dtype.  It chunks by
-// kBt = 32 rows, whatever the forward chunked by (the scan does not depend
-// on the chunk size), which keeps every tile of a chunk in shared memory
-// up to P = N = 128.  Per chunk, with cum = cumsum(a), e_j =
-// exp(cum_last - cum_j), L = exp(cum_i - cum_j) on the lower triangle
-// (evaluated there only: above it the exponent can overflow), the state
-// entering the chunk s and the gradient of the state leaving it ds:
+// zero) it gives dx, da, dB and dC in the inputs' dtype.  Per chunk, with
+// cum = cumsum(a), e_j = exp(cum_last - cum_j), L = exp(cum_i - cum_j) on
+// the lower triangle (evaluated there only: above it the exponent can
+// overflow), the state entering the chunk s and the gradient of the state
+// leaving it ds:
 //   dx_j = sum_i ((C B^T) o L)_ij dy_i + e_j (ds B_j)
 //   dC_i = sum_j (dy_i.x_j) L_ij B_j + exp(cum_i) s^T dy_i
 //   dB_j = sum_i (dy_i.x_j) L_ij C_i + e_j ds^T x_j
 //   dcum from L (both indices), exp(cum_i) against s and the decays into
-//   the outgoing state; da = its reverse cumsum within the chunk.
-// Four kernels per call:
+//   the outgoing state; da = its reverse cumsum within the chunk;
+//   ds of the chunk before = ds exp(cum_last) + sum_i exp(cum_i) dy_i (x) C_i.
+// dB and dC are taken per head into float32 partials (B, S, H, N) and
+// summed over each group's heads in a fixed order by ssd_bwd_group.  Every
+// sum is taken by one thread or one block in a fixed order: no atomics, so
+// the gradients do not depend on scheduling.
+//
+// Bound: memory, as the forward.  Two instances, chosen by dtype in the
+// wrapper:
+//
+// bf16 (training; namespace sbwd3): the forward's chunks of kT = 256 rows in
+// 64-row sub-tiles, and the forward's own entering states s_in (hi, lo) and
+// cumsums, which _SSD saves (the wrapper runs the forward's passes 1 and 2
+// for a call without them).  Per call:
+//   1. ssd3::ssd_bwd_own (the forward's pass 1 with the decay exp(cum)),
+//      fed dY and C: each chunk's share of the state gradient,
+//      dY^T (C o exp(cum)), on wgmma;
+//   2. ssd_bwd_dpass, per (b, h) and state element: ds of every chunk in
+//      reverse from dfinal (or 0), as a bf16 hi and lo pair, and per block
+//      the partial sums of <ds, s_in> that dcum_last takes;
+//   3. ssd_bwd_rows, one block per (64-row sub-tile J, h, b), over the
+//      chunk's sub-tiles I >= J streamed through a 2-stage TMA ring: dx_J
+//      and the per-head dB_J from wgmmas B_J C_I^T and x_J dY_I^T (masked by
+//      L in registers into bf16 hi / lo A operands) times dY_I and C_I,
+//      with the ds terms B_J ds^T and x_J ds first; the column sums of
+//      (dy x^T) o L o (C B^T) and B_j . dB_j's ds part for dcum;
+//   4. ssd_bwd_cols, one block per (sub-tile I, h, b), over J <= I: the
+//      per-head dC_I from dY_I x_J^T o L times B_J, after dY_I s_in; the
+//      row sums and C_i . dC_i's s_in part for dcum;
+//   5. ssd_bwd_da, per (chunk, h, b): dcum and its reverse cumsum over the
+//      chunk's 256 rows;
+//   6. sbwd::ssd_bwd_group.
+// Every operand the kernels compute (the masked scores, ds, the decayed B
+// and C of pass 1) is a bf16 hi and lo pair, as in the forward: one
+// rounding carried 0.035 into y there.
+//
+// float32 (parity checks; namespace sbwd): the CUDA-core body, chunks of
+// kBt = 32 rows (which keeps every tile of a chunk in shared memory up to
+// P = N = 128), four kernels per call:
 //   1. ssd_bwd_states, grid (chunks, H, B): each chunk's own outgoing state
 //      x^T (B o e) and its own share of the incoming gradient
 //      sum_i exp(cum_i) dy_i (x) C_i, and cum_last, into float32 scratch;
@@ -822,14 +914,8 @@ int launch(const void* x, const void* a, const void* b, const void* c,
 //      entering each chunk (forward over the chunks) and the gradient of
 //      the state leaving each chunk (in reverse), in place;
 //   3. ssd_bwd_chunk, grid (chunks, H, B): every gradient of the chunk's
-//      rows; dB and dC per head into float32 scratch (B, S, H, N);
-//   4. ssd_bwd_group: dB and dC summed over the heads of each group in a
-//      fixed order (zamba2: 80 heads, one group).
-// Every sum is taken by one thread or one block in a fixed order: no
-// atomics, so the gradients do not depend on scheduling.
-//
-// Bound: memory, as the forward.  A simple design first, on the CUDA cores
-// in float32 from operands of either dtype.
+//      rows; dB and dC per head;
+//   4. ssd_bwd_group.
 namespace sbwd {
 
 constexpr int kBt = 32;        // rows per chunk
@@ -1174,6 +1260,624 @@ int launch(const void* x, const void* a, const void* b, const void* c,
 
 }  // namespace sbwd
 
+// ----------------------------------------------------------- bf16 backward
+namespace sbwd3 {
+
+using namespace hopper;
+using ssd3::align1024;
+using ssd3::kConsumers;
+using ssd3::kR;
+using ssd3::kRegion;
+using ssd3::kStages;
+using ssd3::kSubs;
+using ssd3::kT;
+using ssd3::kThreads;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The sum of v over the block's threads, in every thread, in a fixed order
+// (`red` holds a float per warp).
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = sbwd::warp_sum(v);
+  const int n = blockDim.x / 32;
+  __syncthreads();  // the last call's reads of red are done
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int k = 0; k < n; ++k) t += red[k];
+  return t;
+}
+
+// Pass 2, per (b, h) and state element, in reverse over the chunks: the
+// gradient of the state leaving chunk c, ds[nc-1] = dfinal (or 0) and
+// ds[c-1] = ds[c] exp(cum_last[c]) + own[c] (own: pass 1's shares), as a
+// bf16 hi and lo pair (B, nc, H, 2, P, N); and per block and chunk the
+// partial sum of ds[c] o s_in[c] (B, H, nc, blocks).
+__global__ void __launch_bounds__(256)
+    ssd_bwd_dpass(const float* __restrict__ own,
+                  const __nv_bfloat16* __restrict__ s_in,
+                  const float* __restrict__ cum,
+                  const float* __restrict__ dfinal,
+                  __nv_bfloat16* __restrict__ ds, float* __restrict__ wpart,
+                  int H, int PN, int nc) {
+  __shared__ float red[8];
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const bool in = e < PN;
+  const size_t bh = (size_t)b * H + h;
+  float run = in && dfinal != nullptr ? dfinal[bh * PN + e] : 0.f;
+  for (int c = nc - 1; c >= 0; --c) {
+    const size_t st = ((size_t)b * nc + c) * H + h;
+    float sv = 0.f;
+    if (in) {
+      const __nv_bfloat16 hi = __float2bfloat16_rn(run);
+      __nv_bfloat16* dst = ds + st * 2 * PN + e;
+      dst[0] = hi;
+      dst[PN] = __float2bfloat16_rn(run - __bfloat162float(hi));
+      const __nv_bfloat16* src = s_in + st * 2 * PN + e;
+      sv = __bfloat162float(src[0]) + __bfloat162float(src[PN]);
+    }
+    const float w = block_sum(run * sv, red);
+    if (threadIdx.x == 0) wpart[(bh * nc + c) * gridDim.x + blockIdx.x] = w;
+    if (in)
+      run = run * expf(cum[(bh * nc + c) * kT + kT - 1]) + own[st * PN + e];
+  }
+}
+
+// acc (64 x 64) = A B^T over W columns, both K-major tiles of 64 rows.
+template <int W>
+__device__ __forceinline__ void issue_nt(float (&acc)[kR / 2], uint32_t a,
+                                         uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < W / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kRegion + (kk % 4) * 32;
+    wgmma_ss<kR, 0, 0>(acc, desc_sw128(a + off, 16, 1024),
+                       desc_sw128(b + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc (64 x W) += M B: M (64 x 64) in registers as bf16 hi / lo pairs, B the
+// MN-major tile of 64 rows at b.
+template <int W>
+__device__ __forceinline__ void issue_pair(float (&acc)[W / 2],
+                                           const uint32_t (&hi)[kR / 16][4],
+                                           const uint32_t (&lo)[kR / 16][4],
+                                           uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kR / 16; ++kk) {
+    const uint64_t db = desc_sw128(b + kk * 16 * kRowBytes, kRegion, 1024);
+    wgmma_rs<W, 1>(acc, hi[kk], db, 1);
+    wgmma_rs<W, 1>(acc, lo[kk], db, 1);
+  }
+}
+
+// acc (64 x W) = A T, A the K-major 64-row tile at a (over the state's W
+// rows), T the hi + lo pair of a (W x W) state tile at t, MN-major.
+template <int W>
+__device__ __forceinline__ void issue_state_nn(float (&acc)[W / 2],
+                                               uint32_t a, uint32_t t) {
+  constexpr int kS = W * kRowBytes;  // a region of the state tile
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int kk = 0; kk < W / 16; ++kk)
+      wgmma_ss<W, 0, 1>(
+          acc, desc_sw128(a + (kk / 4) * kRegion + (kk % 4) * 32, 16, 1024),
+          desc_sw128(t + q * (W / kRegionCols) * kS + kk * 16 * kRowBytes,
+                     kS, 1024),
+          q > 0 || kk > 0);
+}
+
+// Row sums of a 64 x W accumulator times the same rows of a 64-row tile
+// in shared memory (the thread's rows lr0 and lr0 + 8), over its quad.
+template <int W>
+__device__ __forceinline__ void row_dots(const float (&acc)[W / 2],
+                                         const uint8_t* tile, int lr0,
+                                         int t4, float& d0, float& d1) {
+  d0 = d1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = swz_bf16(tile, kRegion, lr0 + 8 * (e >> 1),
+                               8 * j + 2 * t4 + (e & 1)) *
+                      acc[4 * j + e];
+      if (e < 2) d0 += x;
+      else d1 += x;
+    }
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    d0 += __shfl_xor_sync(0xffffffffu, d0, o);
+    d1 += __shfl_xor_sync(0xffffffffu, d1, o);
+  }
+}
+
+__device__ __forceinline__ void quad_sum(float& a, float& b) {
+#pragma unroll
+  for (int o = 1; o <= 2; o <<= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, o);
+    b += __shfl_xor_sync(0xffffffffu, b, o);
+  }
+}
+
+// A 64 x W accumulator as float32 rows of a (B, S, H, N) tensor: the
+// thread's rows row0 and row0 + 8, columns < N, rows < S.
+template <int W>
+__device__ __forceinline__ void store_f32(const float (&acc)[W / 2],
+                                          float* __restrict__ dst, int b,
+                                          int row0, int S, int H, int h,
+                                          int N, int t4) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = row0 + 8 * r;
+    if (s >= S) continue;
+    float* row = dst + (((size_t)b * S + s) * H + h) * N;
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col < N)
+        *reinterpret_cast<float2*>(row + col) =
+            make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// bars[0]: the resident tiles; then kStages full and kStages empty
+__device__ __forceinline__ void init_bars(uint64_t* bars) {
+  mbar_init(&bars[0], 1);
+  for (int s = 0; s < kStages; ++s) {
+    mbar_init(&bars[1 + s], 1);
+    mbar_init(&bars[1 + kStages + s], kConsumers);
+  }
+  fence_barrier_init();
+}
+
+size_t tiles_smem(int W) {
+  const int R = W / kRegionCols;
+  // two resident 64-row tiles, a state pair, the ring, cum, barriers
+  return 1024 + (size_t)(2 * R + kStages * 2 * R) * kRegion +
+         (size_t)2 * R * W * kRowBytes + kT * sizeof(float) + 64;
+}
+
+// The chunk's cumsum of a in the log2 domain, from the forward's cum.
+__device__ __forceinline__ void load_cum(float* cum_s, const float* cum,
+                                         int b, int H, int h, int nc, int c,
+                                         int tid) {
+  const float* src = cum + (((size_t)b * H + h) * nc + c) * kT;
+  for (int r = tid; r < kT; r += kConsumers) cum_s[r] = src[r] * kLog2e;
+  named_sync(1, kConsumers);
+}
+
+// Pass 3, one block per (64-row sub-tile J, h, b), over the sub-tiles I >= J
+// of J's chunk: dx_J (bf16) and the per-head dB_J (float32, dbh), and per
+// row j the part of dcum it owns, -(sum_i t_ij) - v_j (dcum_r), and v_j
+// (vrow), where t = ((dY x^T) o L) o (C B^T) and v_j = B_j . e_j ds^T x_j.
+// W: max(P, N) rounded up to 64 (narrower operands are zero-filled).
+template <int W>
+__global__ void __launch_bounds__(kThreads, 1)
+    ssd_bwd_rows(const __grid_constant__ CUtensorMap tb,
+                 const __grid_constant__ CUtensorMap tx,
+                 const __grid_constant__ CUtensorMap tds,
+                 const __grid_constant__ CUtensorMap tc,
+                 const __grid_constant__ CUtensorMap tdy,
+                 const float* __restrict__ cum,
+                 __nv_bfloat16* __restrict__ dx, float* __restrict__ dbh,
+                 float* __restrict__ dcum_r, float* __restrict__ vrow, int S,
+                 int H, int P, int G, int N, int nc) {
+  constexpr int R = W / kRegionCols;
+  constexpr int kS = W * kRowBytes;          // a region of the state tile
+  constexpr int kStage = 2 * R * kRegion;    // C_I, dY_I
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* b_s = align1024(smem_raw);        // B_J
+  uint8_t* x_s = b_s + R * kRegion;          // x_J
+  uint8_t* d_s = x_s + R * kRegion;          // ds hi, lo
+  uint8_t* ring = d_s + 2 * R * kS;
+  float* cum_s = reinterpret_cast<float*>(ring + kStages * kStage);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(cum_s + kT);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kStages;
+
+  const int it = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / G);
+  const int c = it / kSubs, j0 = c * kSubs;
+  const int n_i = min(j0 + kSubs, (int)gridDim.x) - it;  // I = it ..
+  const int tid = threadIdx.x;
+
+  if (tid == 0) init_bars(bars);
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    if (tid == kConsumers) {
+      mbar_expect_tx(bars, 2 * R * kRegion + 2 * R * kS);
+      for (int r = 0; r < R; ++r) {
+        tma_load_4d(b_s + r * kRegion, &tb, bars, r * kRegionCols, g, it * kR,
+                    b);
+        tma_load_4d(x_s + r * kRegion, &tx, bars, r * kRegionCols, h, it * kR,
+                    b);
+        for (int q = 0; q < 2; ++q)
+          tma_load_3d(d_s + (q * R + r) * kS, &tds, bars, r * kRegionCols, 0,
+                      ((b * nc + c) * H + h) * 2 + q);
+      }
+      for (int u = 0; u < n_i; ++u) {
+        const int s = u % kStages;
+        mbar_wait(&empty[s], ((u / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], kStage);
+        uint8_t* st = ring + s * kStage;
+        for (int r = 0; r < R; ++r) {
+          tma_load_4d(st + r * kRegion, &tc, &full[s], r * kRegionCols, g,
+                      (it + u) * kR, b);
+          tma_load_4d(st + (R + r) * kRegion, &tdy, &full[s],
+                      r * kRegionCols, h, (it + u) * kR, b);
+        }
+      }
+    }
+    return;
+  }
+
+  load_cum(cum_s, cum, b, H, h, nc, c, tid);
+  const int w = tid / 32, lane = tid % 32, t4 = lane % 4;
+  const int lr0 = w * 16 + lane / 4;       // tile rows lr0, lr0 + 8
+  const int jr0 = (it - j0) * kR + lr0;    // the same in the chunk
+  const float clast = cum_s[kT - 1];
+  const float e0 = exp2_ftz(clast - cum_s[jr0]);
+  const float e1 = exp2_ftz(clast - cum_s[jr0 + 8]);
+  const uint32_t ba = smem_u32(b_s), xa = smem_u32(x_s);
+
+  // the ds terms: dx_J = e_J o (B_J ds^T), dB_J = e_J o (x_J ds)
+  float adx[W / 2], adb[W / 2];
+  mbar_wait(bars, 0);
+  wgmma_fence();
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int kk = 0; kk < W / 16; ++kk) {
+      const uint32_t col = (kk % 4) * 32;
+      wgmma_ss<W, 0, 0>(
+          adx, desc_sw128(ba + (kk / 4) * kRegion + col, 16, 1024),
+          desc_sw128(smem_u32(d_s) + (q * R + kk / 4) * kS + col, 16, 1024),
+          q > 0 || kk > 0);
+    }
+  issue_state_nn<W>(adb, xa, smem_u32(d_s));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(adx);
+  fence_regs(adb);
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) {
+    const float e = (i & 2) ? e1 : e0;
+    adx[i] *= e;
+    adb[i] *= e;
+  }
+  float v0, v1;
+  row_dots<W>(adb, b_s, lr0, t4, v0, v1);
+
+  float tc0 = 0.f, tc1 = 0.f;
+  for (int u = 0; u < n_i; ++u) {
+    const int s = u % kStages;
+    mbar_wait(&full[s], (u / kStages) & 1);
+    const uint32_t ct = smem_u32(ring + s * kStage), yt = ct + R * kRegion;
+    float cb[kR / 2], dg[kR / 2];  // (C_I B_J^T)^T, (dY_I x_J^T)^T
+    wgmma_fence();
+    issue_nt<W>(cb, ba, ct);
+    issue_nt<W>(dg, xa, yt);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(cb);
+    fence_regs(dg);
+    const int ib = (it - j0 + u) * kR;  // I's first row in the chunk
+#pragma unroll
+    for (int jj = 0; jj < kR / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ir = ib + 8 * jj + 2 * t4 + (e & 1);
+        const int jr = jr0 + 8 * (e >> 1);
+        const float L =
+            ir >= jr ? exp2_ftz(cum_s[ir] - cum_s[jr]) : 0.f;
+        const float gl = cb[4 * jj + e] * L;
+        const float t = gl * dg[4 * jj + e];
+        if (e < 2) tc0 += t;
+        else tc1 += t;
+        cb[4 * jj + e] = gl;
+        dg[4 * jj + e] *= L;
+      }
+    uint32_t gh[kR / 16][4], gl[kR / 16][4], hh[kR / 16][4], hl[kR / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kR / 16; ++kk) {
+      a_frag_split(cb, kk, gh[kk], gl[kk]);
+      a_frag_split(dg, kk, hh[kk], hl[kk]);
+    }
+    fence_regs(adx);
+    fence_regs(adb);
+    wgmma_fence();
+    issue_pair<W>(adx, gh, gl, yt);  // += ((C B^T) o L)^T dY_I
+    issue_pair<W>(adb, hh, hl, ct);  // += ((dY x^T) o L)^T C_I
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(adx);
+    fence_regs(adb);
+    mbar_arrive(&empty[s]);
+  }
+  quad_sum(tc0, tc1);
+
+  const int row0 = it * kR + lr0;
+  if (t4 == 0) {
+    const size_t base = ((size_t)b * H + h) * nc * kT;
+    const float tc[2] = {tc0, tc1}, v[2] = {v0, v1};
+    for (int r = 0; r < 2; ++r)
+      if (row0 + 8 * r < S) {
+        dcum_r[base + row0 + 8 * r] = -tc[r] - v[r];
+        vrow[base + row0 + 8 * r] = v[r];
+      }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int s = row0 + 8 * r;
+    if (s >= S) continue;
+    __nv_bfloat16* row = dx + (((size_t)b * S + s) * H + h) * P;
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col < P)
+        *reinterpret_cast<uint32_t*>(row + col) =
+            pack_bf16(adx[4 * j + 2 * r], adx[4 * j + 2 * r + 1]);
+    }
+  }
+  store_f32<W>(adb, dbh, b, row0, S, H, h, N, t4);
+}
+
+// Pass 4, one block per (64-row sub-tile I, h, b), over the sub-tiles
+// J <= I of I's chunk: the per-head dC_I (float32, dch) and per row i the
+// part of dcum it owns, sum_j t_ij + u_i (dcum_c), u_i = C_i . exp(cum_i)
+// s_in^T dy_i.
+template <int W>
+__global__ void __launch_bounds__(kThreads, 1)
+    ssd_bwd_cols(const __grid_constant__ CUtensorMap tc,
+                 const __grid_constant__ CUtensorMap tdy,
+                 const __grid_constant__ CUtensorMap ts,
+                 const __grid_constant__ CUtensorMap tb,
+                 const __grid_constant__ CUtensorMap tx,
+                 const float* __restrict__ cum, float* __restrict__ dch,
+                 float* __restrict__ dcum_c, int S, int H, int P, int G,
+                 int N, int nc) {
+  constexpr int R = W / kRegionCols;
+  constexpr int kS = W * kRowBytes;
+  constexpr int kStage = 2 * R * kRegion;    // B_J, x_J
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* c_s = align1024(smem_raw);        // C_I
+  uint8_t* y_s = c_s + R * kRegion;          // dY_I
+  uint8_t* s_s = y_s + R * kRegion;          // s_in hi, lo
+  uint8_t* ring = s_s + 2 * R * kS;
+  float* cum_s = reinterpret_cast<float*>(ring + kStages * kStage);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(cum_s + kT);
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kStages;
+
+  const int it = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int g = h / (H / G);
+  const int c = it / kSubs, j0 = c * kSubs;
+  const int n_j = it - j0 + 1;  // J = j0 .. it
+  const int tid = threadIdx.x;
+
+  if (tid == 0) init_bars(bars);
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    if (tid == kConsumers) {
+      mbar_expect_tx(bars, 2 * R * kRegion + 2 * R * kS);
+      for (int r = 0; r < R; ++r) {
+        tma_load_4d(c_s + r * kRegion, &tc, bars, r * kRegionCols, g, it * kR,
+                    b);
+        tma_load_4d(y_s + r * kRegion, &tdy, bars, r * kRegionCols, h,
+                    it * kR, b);
+        for (int q = 0; q < 2; ++q)
+          tma_load_3d(s_s + (q * R + r) * kS, &ts, bars, r * kRegionCols, 0,
+                      ((b * nc + c) * H + h) * 2 + q);
+      }
+      for (int u = 0; u < n_j; ++u) {
+        const int s = u % kStages;
+        mbar_wait(&empty[s], ((u / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], kStage);
+        uint8_t* st = ring + s * kStage;
+        for (int r = 0; r < R; ++r) {
+          tma_load_4d(st + r * kRegion, &tb, &full[s], r * kRegionCols, g,
+                      (j0 + u) * kR, b);
+          tma_load_4d(st + (R + r) * kRegion, &tx, &full[s],
+                      r * kRegionCols, h, (j0 + u) * kR, b);
+        }
+      }
+    }
+    return;
+  }
+
+  load_cum(cum_s, cum, b, H, h, nc, c, tid);
+  const int w = tid / 32, lane = tid % 32, t4 = lane % 4;
+  const int lr0 = w * 16 + lane / 4;
+  const int ir0 = (it - j0) * kR + lr0;
+  const float ec0 = exp2_ftz(cum_s[ir0]), ec1 = exp2_ftz(cum_s[ir0 + 8]);
+  const uint32_t ca = smem_u32(c_s), ya = smem_u32(y_s);
+
+  // the s_in term: dC_I = exp(cum_I) o (dY_I s_in)
+  float adc[W / 2];
+  mbar_wait(bars, 0);
+  wgmma_fence();
+  issue_state_nn<W>(adc, ya, smem_u32(s_s));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(adc);
+#pragma unroll
+  for (int i = 0; i < W / 2; ++i) adc[i] *= (i & 2) ? ec1 : ec0;
+  float u0, u1;
+  row_dots<W>(adc, c_s, lr0, t4, u0, u1);
+
+  float tr0 = 0.f, tr1 = 0.f;
+  for (int u = 0; u < n_j; ++u) {
+    const int s = u % kStages;
+    mbar_wait(&full[s], (u / kStages) & 1);
+    const uint32_t bt = smem_u32(ring + s * kStage), xt = bt + R * kRegion;
+    float cb[kR / 2], dg[kR / 2];  // C_I B_J^T, dY_I x_J^T
+    wgmma_fence();
+    issue_nt<W>(cb, ca, bt);
+    issue_nt<W>(dg, ya, xt);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(cb);
+    fence_regs(dg);
+    const int jb = u * kR;  // J's first row in the chunk
+#pragma unroll
+    for (int jj = 0; jj < kR / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int jr = jb + 8 * jj + 2 * t4 + (e & 1);
+        const int ir = ir0 + 8 * (e >> 1);
+        const float L =
+            ir >= jr ? exp2_ftz(cum_s[ir] - cum_s[jr]) : 0.f;
+        const float dl = dg[4 * jj + e] * L;
+        const float t = dl * cb[4 * jj + e];
+        if (e < 2) tr0 += t;
+        else tr1 += t;
+        dg[4 * jj + e] = dl;
+      }
+    uint32_t hh[kR / 16][4], hl[kR / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kR / 16; ++kk) a_frag_split(dg, kk, hh[kk], hl[kk]);
+    fence_regs(adc);
+    wgmma_fence();
+    issue_pair<W>(adc, hh, hl, bt);  // += ((dY x^T) o L) B_J
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(adc);
+    mbar_arrive(&empty[s]);
+  }
+  quad_sum(tr0, tr1);
+
+  const int row0 = it * kR + lr0;
+  if (t4 == 0) {
+    const size_t base = ((size_t)b * H + h) * nc * kT;
+    if (row0 < S) dcum_c[base + row0] = tr0 + u0;
+    if (row0 + 8 < S) dcum_c[base + row0 + 8] = tr1 + u1;
+  }
+  store_f32<W>(adc, dch, b, row0, S, H, h, N, t4);
+}
+
+// Pass 5, one block of kT threads per (chunk, h, b): dcum of the chunk's
+// rows (the two passes' parts; the last row also takes exp(cum_last)
+// <ds, s_in> and the chunk's sum of v), then da = its reverse cumsum.
+__global__ void __launch_bounds__(kT)
+    ssd_bwd_da(const float* __restrict__ dcum_r,
+               const float* __restrict__ vrow,
+               const float* __restrict__ dcum_c,
+               const float* __restrict__ wpart, const float* __restrict__ cum,
+               __nv_bfloat16* __restrict__ da, int S, int H, int nc,
+               int nblk) {
+  __shared__ float red[kT / 32];
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid % 32, wid = tid / 32;
+  const int r = c * kT + tid;
+  const size_t bh = (size_t)b * H + h, base = bh * nc * kT;
+  const bool in = r < S;
+  float d = in ? dcum_r[base + r] + dcum_c[base + r] : 0.f;
+  const float vsum = block_sum(in ? vrow[base + r] : 0.f, red);
+  if (tid == kT - 1) {
+    float w = 0.f;
+    for (int k = 0; k < nblk; ++k) w += wpart[(bh * nc + c) * nblk + k];
+    d += expf(cum[(bh * nc + c) * kT + kT - 1]) * w + vsum;
+  }
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float dn = __shfl_down_sync(0xffffffffu, d, o);
+    if (lane + o < 32) d += dn;
+  }
+  __syncthreads();  // block_sum's reads of red are done
+  if (lane == 0) red[wid] = d;
+  __syncthreads();
+  for (int k = wid + 1; k < kT / 32; ++k) d += red[k];
+  if (in) da[((size_t)b * S + r) * H + h] = __float2bfloat16(d);
+}
+
+template <int W>
+int launch_tiles(const CUtensorMap& tx, const CUtensorMap& tdy,
+                 const CUtensorMap& tb, const CUtensorMap& tc,
+                 const CUtensorMap& ts, const CUtensorMap& tds,
+                 const float* cum, void* dx, float* dbh, float* dch,
+                 float* dcum_r, float* vrow, float* dcum_c, int B, int S,
+                 int H, int P, int G, int N, int nc, cudaStream_t stream) {
+  const size_t smem = tiles_smem(W);
+  const dim3 grid((S + kR - 1) / kR, H, B);
+  int err = set_smem(ssd_bwd_rows<W>, smem);
+  if (err) return err;
+  ssd_bwd_rows<W><<<grid, kThreads, smem, stream>>>(
+      tb, tx, tds, tc, tdy, cum, static_cast<__nv_bfloat16*>(dx), dbh,
+      dcum_r, vrow, S, H, P, G, N, nc);
+  if ((err = (int)cudaGetLastError())) return err;
+  err = set_smem(ssd_bwd_cols<W>, smem);
+  if (err) return err;
+  ssd_bwd_cols<W><<<grid, kThreads, smem, stream>>>(
+      tc, tdy, ts, tb, tx, cum, dch, dcum_c, S, H, P, G, N, nc);
+  return (int)cudaGetLastError();
+}
+
+// One ssd_bwd() call on `stream`.  s_in (B, nc, H, 2, P, N) bf16 and cum
+// (B, H, nc, kT) float32 are the forward's, or are computed here first
+// (have_states 0, with final (B, H, P, N) float32 as scratch).  Scratch
+// from the wrapper: own (B, nc, H, P, N) float32, ds like s_in, wpart
+// (B, H, nc, ceil(P N / 256)), rows (3, B, H, nc kT) and dbh, dch
+// (B, S, H, N), all float32.
+int launch(const void* x, const void* a, const void* b, const void* c,
+           const void* dy, const void* dfinal, void* dx, void* da, void* db,
+           void* dc, void* s_in, float* cum, int have_states, float* own,
+           void* final_scratch, void* ds, float* wpart, float* rows,
+           float* dbh, float* dch, int B, int S, int H, int P, int G, int N,
+           cudaStream_t stream) {
+  const int nc = (S + kT - 1) / kT;
+  const int W = round_up(P > N ? P : N, kRegionCols);
+  CUtensorMap tx, tdy, tb, tc, ts, tds;
+  int err = ssd3::encode_rows(&tx, x, B, S, H, P);
+  if (!err) err = ssd3::encode_rows(&tdy, dy, B, S, H, P);
+  if (!err) err = ssd3::encode_rows(&tb, b, B, S, G, N);
+  if (!err) err = ssd3::encode_rows(&tc, c, B, S, G, N);
+  if (err) return err;
+  if (!have_states) {
+    err = ssd3::states_pass(tx, tb, a, own, s_in, cum, final_scratch, B, S,
+                            H, P, G, N, stream);
+    if (err) return err;
+  }
+  err = ssd3::encode_states(&ts, s_in, P, N, B * nc * H * 2, W);
+  if (!err) err = ssd3::encode_states(&tds, ds, P, N, B * nc * H * 2, W);
+  if (err) return err;
+  err = ssd3::launch_states(tdy, tc, a, own, nullptr, B, S, H, P, G, N, nc,
+                            1, stream);
+  if (err) return err;
+  const int PN = P * N, nblk = (PN + 255) / 256;
+  ssd_bwd_dpass<<<dim3(nblk, H, B), 256, 0, stream>>>(
+      own, static_cast<const __nv_bfloat16*>(s_in), cum,
+      static_cast<const float*>(dfinal), static_cast<__nv_bfloat16*>(ds),
+      wpart, H, PN, nc);
+  if ((err = (int)cudaGetLastError())) return err;
+  const size_t plane = (size_t)B * H * nc * kT;
+  float *dcum_r = rows, *vrow = rows + plane, *dcum_c = rows + 2 * plane;
+  if (W == 64)
+    err = launch_tiles<64>(tx, tdy, tb, tc, ts, tds, cum, dx, dbh, dch,
+                           dcum_r, vrow, dcum_c, B, S, H, P, G, N, nc, stream);
+  else if (W == 128)
+    err = launch_tiles<128>(tx, tdy, tb, tc, ts, tds, cum, dx, dbh, dch,
+                            dcum_r, vrow, dcum_c, B, S, H, P, G, N, nc,
+                            stream);
+  else
+    err = (int)cudaErrorInvalidValue;
+  if (err) return err;
+  ssd_bwd_da<<<dim3(nc, H, B), kT, 0, stream>>>(
+      dcum_r, vrow, dcum_c, wpart, cum, static_cast<__nv_bfloat16*>(da), S,
+      H, nc, nblk);
+  if ((err = (int)cudaGetLastError())) return err;
+  const size_t total = (size_t)B * S * G * N;
+  sbwd::ssd_bwd_group<__nv_bfloat16><<<(total + 255) / 256, 256, 0, stream>>>(
+      dbh, dch, static_cast<__nv_bfloat16*>(db),
+      static_cast<__nv_bfloat16*>(dc), total, H, G, N);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sbwd3
+
 extern "C" {
 
 // Returns cudaGetLastError() after the launch: nonzero means the launch was
@@ -1182,6 +1886,7 @@ extern "C" {
 int ksp_ssd_f32(const void* x, const void* a, const void* b, const void* c,
                 void* y, void* final_state, int B, int S, int H, int P, int G,
                 int N, cudaStream_t stream) {
+  hopper::enter();
   return launch<float>(x, a, b, c, y, final_state, B, S, H, P, G, N, stream);
 }
 
@@ -1192,6 +1897,7 @@ int ksp_ssd_bf16(const void* x, const void* a, const void* b, const void* c,
                  void* y, void* final_state, void* states, void* s_in,
                  void* cum, int B, int S, int H, int P, int G, int N,
                  cudaStream_t stream) {
+  hopper::enter();
   return ssd3::launch(x, a, b, c, y, final_state, states, s_in, cum, B, S, H,
                       P, G, N, stream);
 }
@@ -1200,12 +1906,16 @@ int ksp_ssd_bf16(const void* x, const void* a, const void* b, const void* c,
 // and dfinal (B, H, P, N) float32 or null (zero).  Scratch from the
 // wrapper, all float32: states and dstates (B, ceil(S / 32), H, P, N),
 // clast (B, H, ceil(S / 32)), dbh and dch (B, S, H, N).  The wrapper checks
-// shapes, dtypes, G | H and P, N <= 128.
+// shapes, dtypes, G | H and P, N <= 128.  The bf16 instance takes the
+// forward's s_in and cum (have_states 1) or computes them into the given
+// buffers, and the scratch listed at sbwd3::launch; TMA's checks as the
+// forward's.
 int ksp_ssd_bwd_f32(const void* x, const void* a, const void* b,
                     const void* c, const void* dy, const void* dfinal,
                     void* dx, void* da, void* db, void* dc, void* states,
                     void* dstates, void* clast, void* dbh, void* dch, int B,
                     int S, int H, int P, int G, int N, cudaStream_t stream) {
+  hopper::enter();
   return sbwd::launch<float>(
       x, a, b, c, dy, dfinal, dx, da, db, dc, static_cast<float*>(states),
       static_cast<float*>(dstates), static_cast<float*>(clast),
@@ -1215,14 +1925,18 @@ int ksp_ssd_bwd_f32(const void* x, const void* a, const void* b,
 
 int ksp_ssd_bwd_bf16(const void* x, const void* a, const void* b,
                      const void* c, const void* dy, const void* dfinal,
-                     void* dx, void* da, void* db, void* dc, void* states,
-                     void* dstates, void* clast, void* dbh, void* dch, int B,
-                     int S, int H, int P, int G, int N, cudaStream_t stream) {
-  return sbwd::launch<__nv_bfloat16>(
-      x, a, b, c, dy, dfinal, dx, da, db, dc, static_cast<float*>(states),
-      static_cast<float*>(dstates), static_cast<float*>(clast),
-      static_cast<float*>(dbh), static_cast<float*>(dch), B, S, H, P, G, N,
-      stream);
+                     void* dx, void* da, void* db, void* dc, void* s_in,
+                     void* cum, int have_states, void* own,
+                     void* final_scratch, void* ds, void* wpart, void* rows,
+                     void* dbh, void* dch, int B, int S, int H, int P, int G,
+                     int N, cudaStream_t stream) {
+  hopper::enter();
+  return sbwd3::launch(x, a, b, c, dy, dfinal, dx, da, db, dc, s_in,
+                       static_cast<float*>(cum), have_states,
+                       static_cast<float*>(own), final_scratch, ds,
+                       static_cast<float*>(wpart), static_cast<float*>(rows),
+                       static_cast<float*>(dbh), static_cast<float*>(dch), B,
+                       S, H, P, G, N, stream);
 }
 
 }  // extern "C"

@@ -31,11 +31,19 @@ carried over.
 Training: when autograd records (grad enabled and an input that requires
 grad), :func:`ssd` goes through a ``torch.autograd.Function`` whose
 backward is :func:`ssd_bwd`: on CUDA the hand-written backward kernels
-(``csrc/ssd.cu``, namespace ``sbwd``: four device kernels per call, both
-dtypes on the CUDA cores, chunks of ``CHUNK_BWD`` = 32 rows), counted by
-``LAUNCHES["ssd_bwd"]`` once per call; on the CPU ``ref.ssd_bwd``.  The
-backward recomputes the state entering each chunk from the saved inputs,
-so the forward keeps nothing beyond them.
+(``csrc/ssd.cu``), counted by ``LAUNCHES["ssd_bwd"]`` once per call; on the
+CPU ``ref.ssd_bwd``.  Two instances, picked by dtype:
+
+* bfloat16 (training, namespace ``sbwd3``): the forward's chunks of
+  ``CHUNK_BWD_BF16`` = 256 rows, tensor-core products (``wgmma``) on bf16
+  hi / lo operand pairs, tiles brought in by TMA.  It reads the states
+  entering each chunk and the chunk cumsums that the bf16 forward computed
+  (the ``_SSD`` function saves them, ~11 MB a call at zamba2's 1 x 2048);
+  called without them (``states=None``), the wrapper has the kernel run the
+  forward's first two passes to get them.
+* float32 (parity checks, namespace ``sbwd``): four device kernels on the
+  CUDA cores, chunks of ``CHUNK_BWD`` = 32 rows, recomputing the entering
+  states from the inputs.
 """
 
 from __future__ import annotations
@@ -49,22 +57,26 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ssd import ref
 
 __all__ = ["LAUNCHES", "SOURCE", "SUB_CHUNK", "CHUNK_BF16", "CHUNK_BWD",
-           "reset_launches", "ssd", "ssd_bwd"]
+           "CHUNK_BWD_BF16", "reset_launches", "ssd", "ssd_bwd"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 SUB_CHUNK = 64        # kSub in csrc/ssd.cu (float32 instance)
 CHUNK_BF16 = 256      # ssd3::kT in csrc/ssd.cu (bf16 instance)
-CHUNK_BWD = 32        # sbwd::kBt in csrc/ssd.cu (backward, both dtypes)
+CHUNK_BWD = 32        # sbwd::kBt in csrc/ssd.cu (float32 backward)
+CHUNK_BWD_BF16 = 256  # the forward's ssd3::kT (bf16 backward, sbwd3)
 MAX_P = MAX_N = 128   # kMaxP / kMaxN in csrc/ssd.cu
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # f32: (x, a, b, c, y, final, B, S, H, P, G, N, stream)
 # bf16: (x, a, b, c, y, final, states, s_in, cum, B, S, H, P, G, N, stream)
-# bwd: (x, a, b, c, dy, dfinal, dx, da, db, dc, states, dstates, clast,
-#       dbh, dch, B, S, H, P, G, N, stream)
+# bwd f32: (x, a, b, c, dy, dfinal, dx, da, db, dc, states, dstates, clast,
+#           dbh, dch, B, S, H, P, G, N, stream)
+# bwd bf16: (x, a, b, c, dy, dfinal, dx, da, db, dc, s_in, cum, have_states,
+#            own, final, ds, wpart, rows, dbh, dch, B, S, H, P, G, N, stream)
 SIGNATURES = {"ksp_ssd_f32": [_P] * 6 + [_I] * 6 + [_P],
               "ksp_ssd_bf16": [_P] * 9 + [_I] * 6 + [_P],
               "ksp_ssd_bwd_f32": [_P] * 15 + [_I] * 6 + [_P],
-              "ksp_ssd_bwd_bf16": [_P] * 15 + [_I] * 6 + [_P]}
+              "ksp_ssd_bwd_bf16": [_P] * 12 + [_I] + [_P] * 7 + [_I] * 6
+              + [_P]}
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 LAUNCHES = {"ssd": 0, "ssd_bwd": 0}
@@ -123,13 +135,15 @@ def ssd(X: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (X, A, Bm, Cm)):
         return _SSD.apply(X, A, Bm, Cm, chunk)
-    return _forward(X, A, Bm, Cm, chunk)
+    return _forward(X, A, Bm, Cm, chunk)[:2]
 
 
 def _forward(X, A, Bm, Cm, chunk):
+    """``(y, final, states)``: ``states`` is the bf16 kernel's ``(s_in,
+    cum)`` (what :func:`ssd_bwd` can reuse), None otherwise."""
     B, S, H, P, G, N = _check(X, A, Bm, Cm, chunk)
     if X.device.type == "cpu":
-        return ref.ssd(X, A, Bm, Cm, chunk)
+        return (*ref.ssd(X, A, Bm, Cm, chunk), None)
     y = torch.empty_like(X)
     final = torch.empty((B, H, P, N), dtype=torch.float32, device=X.device)
     lib = build.load(SOURCE, SIGNATURES)
@@ -147,16 +161,20 @@ def _forward(X, A, Bm, Cm, chunk):
     build.launch(lib, f"ksp_ssd_{_SUFFIX[X.dtype]}", X.device, *ptrs,
                  B, S, H, P, G, N)
     LAUNCHES["ssd"] += 1
-    return y, final
+    return y, final, (s_in, cum) if X.dtype == torch.bfloat16 else None
 
 
 def ssd_bwd(X: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
             Cm: torch.Tensor, chunk: int, dY: torch.Tensor,
-            dfinal: torch.Tensor = None):
+            dfinal: torch.Tensor = None, states=None):
     """The gradients ``(dX, dA, dBm, dCm)`` of :func:`ssd` from its inputs,
     ``dY`` (like X, contiguous) and the final state's gradient ``dfinal``
     (B, H, P, N) float32, or None when the final state is unused: the
-    backward kernels on CUDA, the plain version on the CPU."""
+    backward kernels on CUDA, the plain version on the CPU.  ``states`` is
+    what the bf16 forward kernel computed for the same inputs, ``(s_in
+    (B, nc, H, 2, P, N) bf16, cum (B, H, nc, 256) float32)`` with
+    nc = ceil(S / 256), or None: the bf16 kernel then computes them itself
+    (the float32 kernel and the plain version never read them)."""
     B, S, H, P, G, N = _check(X, A, Bm, Cm, chunk)
     if dY.shape != X.shape or dY.dtype != X.dtype \
             or dY.device != X.device or not dY.is_contiguous():
@@ -169,10 +187,15 @@ def ssd_bwd(X: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     if X.device.type == "cpu":
         return ref.ssd_bwd(X, A, Bm, Cm, chunk, dY, dfinal)
     dX, dA, dBm, dCm = (torch.empty_like(t) for t in (X, A, Bm, Cm))
-    nc = -(-S // CHUNK_BWD)
+    if X.dtype == torch.bfloat16:
+        build.check_tma(P, dY=dY)
+        _bwd_bf16(X, A, Bm, Cm, dY, dfinal, states, dX, dA, dBm, dCm)
+        LAUNCHES["ssd_bwd"] += 1
+        return dX, dA, dBm, dCm
     f32 = dict(dtype=torch.float32, device=X.device)
-    states = torch.empty((B, nc, H, P, N), **f32)
-    dstates = torch.empty_like(states)
+    nc = -(-S // CHUNK_BWD)
+    chunk_states = torch.empty((B, nc, H, P, N), **f32)
+    dstates = torch.empty_like(chunk_states)
     clast = torch.empty((B, H, nc), **f32)
     dbh = torch.empty((B, S, H, N), **f32)
     dch = torch.empty_like(dbh)
@@ -180,28 +203,71 @@ def ssd_bwd(X: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     build.launch(lib, f"ksp_ssd_bwd_{_SUFFIX[X.dtype]}", X.device,
                  *(t.data_ptr() for t in (X, A, Bm, Cm, dY)),
                  None if dfinal is None else dfinal.data_ptr(),
-                 *(t.data_ptr() for t in (dX, dA, dBm, dCm, states, dstates,
-                                          clast, dbh, dch)),
+                 *(t.data_ptr() for t in (dX, dA, dBm, dCm, chunk_states,
+                                          dstates, clast, dbh, dch)),
                  B, S, H, P, G, N)
     LAUNCHES["ssd_bwd"] += 1
     return dX, dA, dBm, dCm
 
 
+def _bwd_bf16(X, A, Bm, Cm, dY, dfinal, states, dX, dA, dBm, dCm):
+    """One launch of the bf16 backward (``sbwd3``) with its scratch."""
+    B, S, H, P = X.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    nc = -(-S // CHUNK_BWD_BF16)
+    dev = X.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    state_shape = (B, nc, H, 2, P, N)
+    cum_shape = (B, H, nc, CHUNK_BWD_BF16)
+    if states is None:
+        s_in = torch.empty(state_shape, dtype=torch.bfloat16, device=dev)
+        cum = torch.empty(cum_shape, **f32)
+        final = torch.empty((B, H, P, N), **f32)
+    else:
+        s_in, cum = states
+        for name, t, shape, dtype in (("s_in", s_in, state_shape,
+                                       torch.bfloat16),
+                                      ("cum", cum, cum_shape, torch.float32)):
+            if t.shape != shape or t.dtype != dtype or t.device != dev \
+                    or not t.is_contiguous():
+                raise ValueError(f"states: {name} must be a contiguous "
+                                 f"{shape} {dtype} tensor on {dev}")
+        final = None
+    own = torch.empty((B, nc, H, P, N), **f32)
+    ds = torch.empty(state_shape, dtype=torch.bfloat16, device=dev)
+    wpart = torch.empty((B, H, nc, -(-(P * N) // 256)), **f32)
+    rows = torch.empty((3, B, H, nc * CHUNK_BWD_BF16), **f32)
+    dbh = torch.empty((B, S, H, N), **f32)
+    dch = torch.empty_like(dbh)
+    lib = build.load(SOURCE, SIGNATURES)
+    build.launch(lib, "ksp_ssd_bwd_bf16", dev,
+                 *(t.data_ptr() for t in (X, A, Bm, Cm, dY)),
+                 None if dfinal is None else dfinal.data_ptr(),
+                 *(t.data_ptr() for t in (dX, dA, dBm, dCm, s_in, cum)),
+                 int(states is not None), own.data_ptr(),
+                 None if final is None else final.data_ptr(),
+                 *(t.data_ptr() for t in (ds, wpart, rows, dbh, dch)),
+                 B, S, H, P, G, N)
+
+
 class _SSD(torch.autograd.Function):
     """:func:`ssd` with its gradient: the backward is :func:`ssd_bwd` on the
-    saved inputs (the final state's gradient is None when it is unused)."""
+    saved inputs and, from the bf16 kernel, its entering states and
+    cumsums (the final state's gradient is None when it is unused)."""
 
     @staticmethod
     def forward(ctx, X, A, Bm, Cm, chunk):
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(X, A, Bm, Cm)
+        y, final, states = _forward(X, A, Bm, Cm, chunk)
+        ctx.save_for_backward(X, A, Bm, Cm, *(states or ()))
         ctx.chunk = chunk
-        return _forward(X, A, Bm, Cm, chunk)
+        return y, final
 
     @staticmethod
     def backward(ctx, dY, dfinal):
-        X, A, Bm, Cm = ctx.saved_tensors
+        X, A, Bm, Cm, *states = ctx.saved_tensors
         dY = torch.zeros_like(X) if dY is None else dY.contiguous()
         if dfinal is not None:
             dfinal = dfinal.float().contiguous()
-        return (*ssd_bwd(X, A, Bm, Cm, ctx.chunk, dY, dfinal), None)
+        return (*ssd_bwd(X, A, Bm, Cm, ctx.chunk, dY, dfinal,
+                         tuple(states) or None), None)

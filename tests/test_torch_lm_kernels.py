@@ -285,13 +285,14 @@ class TestBackward:
             _close_to_max(g, a, what=f"d{n} vs autograd")
 
     def test_ssd_bwd_chunk_invariance(self):
-        """The backward kernel chunks by ``CHUNK_BWD`` rows whatever the
-        model's chunk: the gradients may not depend on the chunk."""
+        """The backward kernels chunk by ``CHUNK_BWD`` (float32) and
+        ``CHUNK_BWD_BF16`` (bf16) rows whatever the model's chunk: the
+        gradients may not depend on the chunk."""
         X, A, Bm, Cm = _ssd_inputs(50, 1, 200, 4, 16, 2, 16)
         dY = np.random.default_rng(51).standard_normal(X.shape)
         args = [_t(a) for a in (X, A, Bm, Cm)]
         base = ssd_ops.ssd_bwd(*args, 16, _t(dY))
-        for chunk in (ssd_ops.CHUNK_BWD, 256):
+        for chunk in (ssd_ops.CHUNK_BWD, ssd_ops.CHUNK_BWD_BF16):
             for g, w in zip(ssd_ops.ssd_bwd(*args, chunk, _t(dY)), base):
                 _close_to_max(g, w)
 
@@ -413,7 +414,8 @@ class TestKernelsOnCard:
                                            atol=tol * scale)
         for seed, (shape, chunk, dtype) in enumerate([
                 ((1, 100, 4, 32, 2, 16), 64, torch.float32),
-                ((1, 300, 80, 64, 1, 64), 256, torch.bfloat16)]):
+                ((1, 300, 80, 64, 1, 64), 256, torch.bfloat16),
+                ((2, 600, 8, 64, 2, 64), 256, torch.bfloat16)]):  # 3 chunks
             args = [_t(a, dtype).cuda() for a in _ssd_inputs(seed, *shape)]
             dY = torch.randn(args[0].shape, device="cuda").to(dtype)
             before = ssd_ops.LAUNCHES["ssd_bwd"]
@@ -425,6 +427,14 @@ class TestKernelsOnCard:
                 scale = float(w.float().abs().max())
                 torch.testing.assert_close(g.float(), w.float(), rtol=tol,
                                            atol=tol * scale)
+            if dtype == torch.bfloat16:
+                # through _SSD, which hands the backward the forward's
+                # entering states: the same gradients, bitwise
+                leaves = [a.detach().clone().requires_grad_() for a in args]
+                y, _ = ssd_ops.ssd(*leaves, chunk)
+                saved = torch.autograd.grad(y, leaves, dY)
+                for g, a in zip(got, saved):
+                    assert torch.equal(g, a)
 
 
 # ------------------------------------------- rehearsal of the bf16 kernels
@@ -623,3 +633,36 @@ class TestBf16KernelsAtServingWidth:
         yr, sr = ssd_ops.ref.ssd(*args, 256)
         torch.testing.assert_close(y.float(), yr.float(), **BF16)
         torch.testing.assert_close(st, sr, **SSD_TOL)
+
+    def test_flash_bwd(self):
+        """The bf16 attention backward at zamba2-2.7b's training shape:
+        (1, 2048, 32, 80), causal; 2e-2 of each element plus 2e-2 of the
+        tensor's largest."""
+        if not torch.cuda.is_available():
+            pytest.skip("the CUDA kernel has no CPU mode; needs a CUDA card")
+        q, k, v = (_t(a, torch.bfloat16).cuda()
+                   for a in _qkv(23, 1, 2048, 2048, 32, 32, 80))
+        o, lse = flash_ops.ref.flash_attention_fwd(q, k, v, causal=True)
+        do = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
+        got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+        want = flash_ops.ref.flash_attention_bwd(q, k, v, o, do, lse,
+                                                 causal=True)
+        for g, w in zip(got, want):
+            scale = float(w.float().abs().max())
+            torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                       atol=2e-2 * scale)
+
+    def test_ssd_bwd(self):
+        """The bf16 SSD backward at zamba2-2.7b's training shape: x (1,
+        2048, 80, 64), G = 1, N = 64, eight chunks of 256."""
+        if not torch.cuda.is_available():
+            pytest.skip("the CUDA kernel has no CPU mode; needs a CUDA card")
+        args = [_t(a, torch.bfloat16).cuda()
+                for a in _ssd_inputs(24, 1, 2048, 80, 64, 1, 64)]
+        dY = torch.randn(args[0].shape, device="cuda").to(torch.bfloat16)
+        got = ssd_ops.ssd_bwd(*args, 256, dY)
+        want = ssd_ops.ref.ssd_bwd(*args, 256, dY)
+        for g, w in zip(got, want):
+            scale = float(w.float().abs().max())
+            torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
+                                       atol=2e-2 * scale)
