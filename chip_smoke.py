@@ -137,7 +137,39 @@ Phases (any failure exits non-zero; nothing is caught):
    (``ssd_bwd`` with the forward's saved entering states, as training
    calls it, and alone) beside their plain versions, their bounds, PR 17's
    times and, for attention, the backward of
-   ``scaled_dot_product_attention``.
+   ``scaled_dot_product_attention``;
+15. the moe, vlm and audio families: (a) olmoe-1b-7b at full width and
+   depth (16 layers, 64 experts top-8), ``serve_demo``'s loop for 4 x 2048
+   and 3 x 1000 prompts, 32 greedy tokens each, after a warm-up: prefill
+   seconds, decode tokens/s, peak memory, each layer's
+   ``moe_dropped_frac``; exactly 16 ``flash_attention`` launches per
+   prefill, none in decode, no ``ssd``; logits finite; one 4 x 2048
+   prefill under ``torch.profiler`` (matmul, ``flash_attention``, the
+   dispatch's sorts / gathers / scatters, other; idle share); one MoE
+   block called twice at the prefill's shape, bitwise equal (the combine
+   has no atomics); (b) olmoe cut to 2 layers, B = 1, S = 300, 4 decode
+   steps, card against CPU: in f32 every routing call identical (expert
+   sets, slots, kept entries) and logits and caches at phase 10's rule;
+   one bf16 MoE block on identical inputs, routing identical and output
+   at phase 10's bf16 rule; the bf16 model's routing agreement share and
+   the k-th / (k+1)-th probability gap where it disagrees, printed; one
+   f32 ``train_step`` at the config's own ``remat="full"``, held as phase
+   14 (c) (``train_card_vs_cpu``); (c) qwen2-vl-72b at full width cut to
+   4 layers: ``serve_demo``'s vlm feed (2 x 2048 embeds, positions of a
+   64-wide image grid: the temporal id fixed, height and width varying),
+   16 decode steps fed zero embeds; exactly 4 ``flash_attention`` launches
+   per prefill; then 1 layer, B = 1, S = 256 and 2 decode steps card
+   against CPU in f32 (the host's free memory checked first); (d)
+   hubert-xlarge at full width and depth (48 non-causal layers):
+   ``step_fn_for(cfg, "encode")`` over 4 x 1500 frames, a warm-up at that
+   shape, then three timed calls: seconds (median), frames/s, peak
+   memory, exactly 48 ``flash_attention`` launches in each; 6 layers, S = 300, card against CPU in f32 and bf16; (e)
+   ``flash_attention`` against its plain version (bf16, phase 8's
+   tolerance) at every shape (a), (c) and (d) launched, then timed there
+   beside the plain version, its bound and ``scaled_dot_product_attention``
+   with the same causality: the ``flash_attention`` record's ``families``
+   field.  ``python3 -c "import chip_smoke; chip_smoke.families_bench()"``
+   runs it alone with its build.
 
 The card's ``nvidia-smi`` line comes two lines before the end, then
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -859,33 +891,46 @@ def kernel_report(source, path, keep=lambda name: "bf16" in name
 
 
 # ------------------------------------------------------------- phase 9
-def serve(model, cfg, batches, new_tokens, seed):
+def serve(model, cfg, batches, new_tokens, seed, feed=None):
     """``serve_demo``'s loop (``launch/serve.py``) on the card: per batch a
-    prefill, then greedy decode steps.  Returns one record per batch."""
+    prefill, then greedy decode steps.  ``feed(rng, Bsz, S)`` gives the
+    prefill batch in place of the tokens (a vlm's embeds and positions;
+    its decode steps are then fed zero embeds, as ``serve_demo``'s).  An
+    MoE model's record holds each layer's ``moe_dropped_frac`` of the
+    prefill (a forward hook on each block; decode calls ``decode``).
+    Returns one record per batch."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.ssd import ops as sops
     from repro_torch.runtime import make_decode_step, make_prefill_step
     rng = np.random.default_rng(seed)
     decode = make_decode_step(cfg)
+    dropped = []
+    hooks = [blk.register_forward_hook(
+        lambda mod, args, out: dropped.append(out[2]["moe_dropped_frac"]))
+        for blk in model.blocks] if cfg.family == "moe" else []
     out = []
     for Bsz, S in batches:
         prefill = make_prefill_step(cfg, capacity=S + new_tokens)
         toks = torch.as_tensor(rng.integers(0, cfg.vocab, (Bsz, S)),
                                dtype=torch.int32, device="cuda")
+        batch = {"tokens": toks} if feed is None else feed(rng, Bsz, S)
+        dropped.clear()
         before = (sops.LAUNCHES["ssd"], fops.LAUNCHES["flash_attention"])
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = prefill(model, {"tokens": toks})
+        logits, cache = prefill(model, batch)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         launched = (sops.LAUNCHES["ssd"] - before[0],
                     fops.LAUNCHES["flash_attention"] - before[1])
         finite = torch.isfinite(logits).all()
         tok = logits[:, -1].argmax(-1)
+        zeros = torch.zeros((Bsz, 1, cfg.d_model), device="cuda")
         for t in range(new_tokens):
             pos = torch.full((Bsz,), S + t, dtype=torch.int32, device="cuda")
-            logits, cache = decode(model, {"tokens": tok}, cache, pos)
+            db = {"tokens": tok} if feed is None else {"embeds": zeros}
+            logits, cache = decode(model, db, cache, pos)
             finite &= torch.isfinite(logits).all()
             tok = logits[:, -1].argmax(-1)
         torch.cuda.synchronize()
@@ -903,13 +948,28 @@ def serve(model, cfg, batches, new_tokens, seed):
                                         "flash_attention":
                                             decode_launches[1]},
                     "finite": bool(finite), "last_tokens": tok.tolist()})
+        if dropped:
+            out[-1]["moe_dropped_frac"] = [float(d) for d in dropped]
         del cache, logits
+    for h in hooks:
+        h.remove()
     return out
 
 
-def profile_prefill(model, cfg, Bsz, S, seed=3):
-    """One prefill under ``torch.profiler``: device ms by kernel kind and
-    the top kernels, beside the prefill's wall time."""
+PREFILL_KINDS = {"ssd": ("ssd_states", "ssd_pass", "ssd_scan"),
+                 "flash_attention": ("flash_fwd",),
+                 "matmul": ("gemm", "xmma", "cutlass", "nvjet", "cublas")}
+# the MoE dispatch and combine: the stable sort of the expert ids, the
+# token gathers, the buffer scatter and the permutation's inverse
+MOE_KINDS = dict(PREFILL_KINDS, sort_gather_scatter=(
+    "Sort", "sort", "Radix", "radix", "index", "Index", "gather", "Gather",
+    "scatter", "Scatter"))
+
+
+def profile_prefill(model, cfg, Bsz, S, seed=3, kinds=PREFILL_KINDS):
+    """One prefill under ``torch.profiler``: device ms by kernel kind
+    (``kinds``, first match in order, else ``other``) and the top kernels,
+    beside the prefill's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.runtime import make_prefill_step
@@ -922,9 +982,6 @@ def profile_prefill(model, cfg, Bsz, S, seed=3):
         prefill(model, {"tokens": toks})
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kinds = {"ssd": ("ssd_states", "ssd_pass", "ssd_scan"),
-             "flash_attention": ("flash_fwd",),
-             "matmul": ("gemm", "xmma", "cutlass", "nvjet", "cublas")}
     by_kind, top = {}, []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -946,33 +1003,38 @@ def profile_prefill(model, cfg, Bsz, S, seed=3):
 
 
 # ------------------------------------------------------------- phase 10
-def card_vs_cpu(dtype_name, seed=1, S=300, steps=4):
-    """Full width, 6 Mamba2 blocks + the shared block: the card's prefill
-    and decode against the plain path on the CPU, same weights and tokens."""
-    import dataclasses
-
-    from repro_torch.configs import get_config
-    from repro_torch.models import decode_step, init_params, prefill
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=6, dtype=dtype_name)
+def card_and_cpu(cfg, seed):
+    """The model of ``cfg`` drawn on the card from ``seed``, and its copy
+    on the CPU."""
+    from repro_torch.models import init_params
     card = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
     cpu = init_params(cfg, None, device="cpu")
     cpu.load_state_dict(card.state_dict())
-    rng = np.random.default_rng(seed)
-    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)),
-                           dtype=torch.int32)
-    feeds = torch.as_tensor(rng.integers(0, cfg.vocab, (steps, 1)),
-                            dtype=torch.int32)
+    return card, cpu
+
+
+def serve_both(cfg, card, cpu, prompt, feeds, S, recorders=None):
+    """prefill(``prompt``) + one decode step per entry of ``feeds`` (CPU
+    batches), on the card and on the CPU.  Returns ``pairs`` of (name,
+    card tensor on the host, CPU tensor) for every logits and cache entry;
+    ``recorders`` (``{"cuda": ..., "cpu": ...}``) are entered around each
+    side's run."""
+    import contextlib
+
+    from repro_torch.models import decode_step, prefill
     runs = {}
     for dev, model in (("cuda", card), ("cpu", cpu)):
-        logits, cache = prefill(model, cfg, {"tokens": toks.to(dev)},
-                                capacity=S + steps)
-        outs = [logits]
-        for t in range(steps):
-            pos = torch.full((1,), S + t, dtype=torch.int32, device=dev)
-            logits, cache = decode_step(model, cfg,
-                                        {"tokens": feeds[t].to(dev)}, cache,
-                                        pos)
-            outs.append(logits)
+        with recorders[dev] if recorders else contextlib.nullcontext():
+            logits, cache = prefill(
+                model, cfg, {k: v.to(dev) for k, v in prompt.items()},
+                capacity=S + len(feeds))
+            outs = [logits]
+            for t, feed in enumerate(feeds):
+                pos = torch.full((1,), S + t, dtype=torch.int32, device=dev)
+                logits, cache = decode_step(
+                    model, cfg, {k: v.to(dev) for k, v in feed.items()},
+                    cache, pos)
+                outs.append(logits)
         runs[dev] = (outs, cache)
     pairs = [(f"logits {i}", a.cpu(), b) for i, (a, b) in
              enumerate(zip(runs["cuda"][0], runs["cpu"][0]))]
@@ -980,9 +1042,33 @@ def card_vs_cpu(dtype_name, seed=1, S=300, steps=4):
         a = runs["cuda"][1][k].cpu()
         if k == "kv_positions":
             if not torch.equal(a, b):
-                raise AssertionError(f"{dtype_name} kv_positions differ")
+                raise AssertionError(f"{cfg.name} kv_positions differ")
             continue
         pairs.append((f"cache {k}", a.float(), b.float()))
+    return pairs
+
+
+def card_vs_cpu(dtype_name, seed=1, S=300, steps=4):
+    """Full width, 6 Mamba2 blocks + the shared block: the card's prefill
+    and decode against the plain path on the CPU, same weights and tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=6, dtype=dtype_name)
+    card, cpu = card_and_cpu(cfg, seed)
+    rng = np.random.default_rng(seed)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)),
+                           dtype=torch.int32)
+    feeds = torch.as_tensor(rng.integers(0, cfg.vocab, (steps, 1)),
+                            dtype=torch.int32)
+    pairs = serve_both(cfg, card, cpu, {"tokens": toks},
+                       [{"tokens": f} for f in feeds], S)
+    return hold_pairs(pairs, dtype_name)
+
+
+def hold_pairs(pairs, dtype_name):
+    """Phase 10's rule on (name, card, CPU) pairs; returns per name (max
+    abs diff, max abs value, relative L2)."""
     worst = {}
     for what, a, b in pairs:
         scale = float(b.abs().max())
@@ -1060,18 +1146,24 @@ def lm_kernel_timings(launches, err):
     return out
 
 
+def _bound(nbytes, nops, ops_per_s=BF16_OPS_PER_S):
+    """``(ms, "bytes" or "operations")``: the larger of ``nbytes`` at the
+    HBM rate and ``nops`` at ``ops_per_s``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def _entry(name, launches, err, ms, plain_ms, lib_ms, nbytes, nops, timed,
            ops_per_s=BF16_OPS_PER_S, **extra):
     """One kernel's record of the ``{"kernels": ...}`` line: its bound is
     the larger of its bytes at the HBM rate and its operations at
     ``ops_per_s``."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / ops_per_s * 1e3
+    bound_ms, bound_by = _bound(nbytes, nops, ops_per_s)
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": lib_ms, "bytes": nbytes, "ops": nops,
             "timed": timed, **extra}
 
@@ -1761,11 +1853,13 @@ TRAIN_KINDS = {"ssd_bwd": ("ssd_bwd_",),
                "matmul": ("gemm", "xmma", "cutlass", "nvjet", "cublas")}
 
 
-def profile_call(fn):
+def profile_call(fn, kinds=None):
     """``fn()`` once under ``torch.profiler``: wall ms, device busy ms and
-    idle share, device ms by kernel kind (``TRAIN_KINDS``, in order), the
-    top kernels and every device kernel of the LM kernels' kinds (ms,
-    launches); ``result`` holds what ``fn`` returned."""
+    idle share, device ms by kernel kind (``kinds``, by default
+    ``TRAIN_KINDS``, in order), the top kernels and every device kernel of
+    the kinds other than matmul (ms, launches); ``result`` holds what
+    ``fn`` returned."""
+    kinds = TRAIN_KINDS if kinds is None else kinds
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1778,7 +1872,7 @@ def profile_call(fn):
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ms = e.self_device_time_total / 1e3
-        kind = next((k for k, keys in TRAIN_KINDS.items()
+        kind = next((k for k, keys in kinds.items()
                      if any(x in e.key for x in keys)), "other")
         by_kind[kind] = by_kind.get(kind, 0.0) + ms
         top.append((ms, e.count, e.key[:90]))
@@ -1795,10 +1889,11 @@ def profile_call(fn):
 PER_HEAD_GRADS = ("A_log", "dt_bias")
 
 
-def train_card_vs_cpu(dtype_name, seed=1, S=300):
+def train_card_vs_cpu(dtype_name, seed=1, S=300, cfg=None):
     """Phase 14 (c): one ``train_step`` of the full-width model cut to 6
-    Mamba2 blocks + the shared block, B = 1, on the card against the plain
-    path on the CPU with the same weights and batch: the loss and every
+    Mamba2 blocks + the shared block (or of ``cfg``: phase 15 (b)), B = 1,
+    on the card against the plain path on the CPU with the same weights
+    and batch: the loss and every
     gradient (each side's ``forward_train`` then ``torch.autograd.grad``,
     what the step computes, before the step); then every parameter after
     the card's AdamW step against the CPU's AdamW fed the card's gradients
@@ -1820,8 +1915,9 @@ def train_card_vs_cpu(dtype_name, seed=1, S=300):
     from repro_torch.models import decayed, forward_train, init_params
     from repro_torch.optim import adamw_init, adamw_update
     from repro_torch.runtime import make_train_step
-    cfg = dataclasses.replace(get_config(ARCH), n_layers=6, dtype=dtype_name,
-                              remat="none")
+    if cfg is None:
+        cfg = dataclasses.replace(get_config(ARCH), n_layers=6,
+                                  dtype=dtype_name, remat="none")
     card = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
     cpu = init_params(cfg, None, device="cpu")
     cpu.load_state_dict(card.state_dict())
@@ -2166,6 +2262,499 @@ def train_bench():
 
 
 
+# ------------------------------------------------------------- phase 15
+OLMOE, QWEN_VL, HUBERT = "olmoe-1b-7b", "qwen2-vl-72b", "hubert-xlarge"
+VLM_LAYERS = 4              # qwen2-vl-72b's 80 layers cut to fit one card
+VLM_BATCHES = ((2, 2048),)
+VLM_NEW_TOKENS = 16
+VLM_GRID_WIDTH = 64         # patches per image row: 2048 = 32 x 64
+AUDIO_BATCH = (4, 1500)     # 30 s clips at the stubbed frontend's 20 ms
+AUDIO_CHECK_LAYERS = 6
+
+
+class Routes:
+    """While active, records every routing ``models.moe.route`` returns (its
+    callers look it up in the module at each call), moved to the host."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.module, self.orig, self.seen = moe, moe.route, []
+
+        def recorded(*args, **kwargs):
+            r = self.orig(*args, **kwargs)
+            self.seen.append(type(r)(*(t.detach().cpu() for t in r)))
+            return r
+        moe.route = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.module.route = self.orig
+
+
+def same_routing(a, b):
+    """Per token, the same set of experts; per sorted entry the same slot
+    and keep (both invariant to the order of experts within a token, the
+    one thing ``topk`` may order differently on near-equal values)."""
+    return (torch.equal(a.expert_idx.sort(-1).values,
+                        b.expert_idx.sort(-1).values)
+            and torch.equal(a.slot, b.slot) and torch.equal(a.keep, b.keep))
+
+
+def routing_agreement(card, cpu, k):
+    """Share of (routing call, token) pairs whose expert sets agree, and
+    the CPU's k-th minus (k+1)-th router probability at the tokens that
+    disagree (min, max)."""
+    agree = total = 0
+    gaps = []
+    for a, b in zip(card, cpu, strict=True):
+        sa = a.expert_idx.sort(-1).values
+        sb = b.expert_idx.sort(-1).values
+        ok = (sa == sb).all(-1)
+        agree += int(ok.sum())
+        total += ok.numel()
+        top = b.probs.topk(k + 1, dim=-1).values
+        gaps += (top[..., k - 1] - top[..., k])[~ok].tolist()
+    return {"agree_share": agree / total, "tokens": total,
+            "disagree": total - agree,
+            "gap_min": min(gaps) if gaps else None,
+            "gap_max": max(gaps) if gaps else None}
+
+
+def grid_feed(cfg, width=VLM_GRID_WIDTH):
+    """``serve_demo``'s vlm feed with the positions of an image: the
+    temporal id fixed, the height and width ids of a ``width``-patch row
+    grid."""
+    from repro_torch.launch.serve import vlm_feed
+
+    def feed(rng, Bsz, S):
+        batch = vlm_feed(cfg, rng, Bsz, S, "cuda")
+        i = torch.arange(S, dtype=torch.int32, device="cuda")
+        grid = torch.stack([torch.zeros_like(i), i // width, i % width], -1)
+        batch["positions"] = grid[None].expand(Bsz, S, 3)
+        return batch
+    return feed
+
+
+def check_served(records, want_flash, what):
+    """Exactly ``want_flash`` attention launches per prefill, none in
+    decode, no ``ssd`` launch, finite logits."""
+    for r in records:
+        if r["prefill_launches"] != {"ssd": 0, "flash_attention": want_flash}:
+            raise AssertionError(f"{what}: prefill launched "
+                                 f"{r['prefill_launches']}, want "
+                                 f"{want_flash} flash_attention")
+        if any(r["decode_launches"].values()):
+            raise AssertionError(f"{what}: decode launched a prefill kernel")
+        if not r["finite"]:
+            raise AssertionError(f"{what}: non-finite logits")
+
+
+def host_gb():
+    """MemAvailable of the host, GB."""
+    with open("/proc/meminfo") as f:
+        kb = next(int(line.split()[1]) for line in f
+                  if line.startswith("MemAvailable"))
+    return kb * 1024 / 1e9
+
+
+def need_host(cfg, what):
+    """Fail before a CPU copy of ``cfg``'s float32 masters that the host
+    cannot hold twice (the copy and its transfer)."""
+    from repro_torch.models import init_params
+    n = sum(p.numel() for p in init_params(cfg, None,
+                                           device="meta").parameters())
+    free = host_gb()
+    log(f"phase 15: {what}: {n} parameters, {4 * n / 1e9:.1f} GB of float32"
+        f" masters on the host; {free:.1f} GB available")
+    if free < 2 * 4 * n / 1e9:
+        raise AssertionError(f"{what}: the host has {free:.1f} GB, needs "
+                             f"{2 * 4 * n / 1e9:.1f}")
+
+
+def olmoe_serving(rec_flash):
+    """15 (a): olmoe-1b-7b at full width and depth through ``serve_demo``'s
+    loop, the profile of one 4 x 2048 prefill, and one MoE block twice on
+    the card, bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.models import init_params
+    from repro_torch.models.moe import moe_block_local
+    cfg = get_config(OLMOE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 15: {OLMOE} init_params on the card: {n_params} parameters "
+        f"in {time.perf_counter() - t0:.2f} s")
+    serve(model, cfg, ((1, 256),), 2, seed=99)  # warm-up, not counted
+    for o in (sops, fops):
+        o.reset_launches()
+    with rec_flash:
+        records = serve(model, cfg, SERVE_BATCHES, NEW_TOKENS, seed=0)
+    launches = {"ssd": sops.LAUNCHES["ssd"],
+                "flash_attention": fops.LAUNCHES["flash_attention"]}
+    check_served(records, cfg.n_layers, OLMOE)
+    prof = profile_prefill(model, cfg, *SERVE_BATCHES[0], kinds=MOE_KINDS)
+    prof_decode = profile_decode(model, cfg, *SERVE_BATCHES[0])
+    # the combine has no atomics: one block twice at the prefill's shape
+    blk = model.blocks[0].moe
+    x = torch.randn((*SERVE_BATCHES[0], cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(5)
+                    ).to(torch.bfloat16)
+    with torch.no_grad():
+        runs = [moe_block_local(x, blk.router, blk.w_gate, blk.w_up,
+                                blk.w_down, topk=cfg.topk,
+                                capacity_factor=cfg.capacity_factor)
+                for _ in range(2)]
+    bitwise = torch.equal(runs[0][0], runs[1][0]) and all(
+        torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[0][1])
+    if not bitwise:
+        raise AssertionError(f"{OLMOE}: two MoE block calls differ")
+    del model, runs, x
+    torch.cuda.empty_cache()
+    return {"params": n_params, "records": records, "launches": launches,
+            "profile": prof, "profile_decode": prof_decode,
+            "block_bitwise": bitwise}
+
+
+def profile_decode(model, cfg, Bsz, S, steps=4):
+    """``steps`` greedy decode steps after a ``Bsz`` x ``S`` prefill, under
+    ``torch.profiler``: device ms by kind and idle share of the steps."""
+    from repro_torch.runtime import make_decode_step, make_prefill_step
+    toks = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab, (Bsz, S)), dtype=torch.int32, device="cuda")
+    logits, cache = make_prefill_step(cfg, capacity=S + steps)(
+        model, {"tokens": toks})
+    decode = make_decode_step(cfg)
+
+    def run():
+        tok = logits[:, -1].argmax(-1)
+        for t in range(steps):
+            pos = torch.full((Bsz,), S + t, dtype=torch.int32, device="cuda")
+            out, _ = decode(model, {"tokens": tok}, cache, pos)
+            tok = out[:, -1].argmax(-1)
+    prof = profile_call(run, kinds=MOE_KINDS)
+    del prof["result"]
+    prof["steps"] = steps
+    prof["ms_per_step"] = prof["wall_ms"] / steps
+    return prof
+
+
+def olmoe_card_vs_cpu(seed=1, S=300, steps=4):
+    """15 (b): olmoe at full width cut to 2 layers, B = 1, S = 300, 4
+    decode steps, card against CPU: f32 routing identical at every routing
+    call, logits and caches at phase 10's rule; one bf16 MoE block on
+    identical inputs (routing identical, output at phase 10's bf16 rule);
+    the bf16 model's routing agreement (printed, not held: its upstream
+    activations differ by rounding); one f32 train_step at the config's
+    own remat "full" at phase 14 (c)'s rule."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import moe_block_local
+    out = {}
+    for dtype_name in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config(OLMOE), n_layers=2,
+                                  dtype=dtype_name)
+        card, cpu = card_and_cpu(cfg, seed)
+        rng = np.random.default_rng(seed)
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)),
+                               dtype=torch.int32)
+        feeds = torch.as_tensor(rng.integers(0, cfg.vocab, (steps, 1)),
+                                dtype=torch.int32)
+        routes = {"cuda": Routes(), "cpu": Routes()}
+        pairs = serve_both(cfg, card, cpu, {"tokens": toks},
+                           [{"tokens": f} for f in feeds], S, routes)
+        seen = {d: r.seen for d, r in routes.items()}
+        n_calls = cfg.n_layers * (1 + steps)
+        if len(seen["cuda"]) != n_calls or len(seen["cpu"]) != n_calls:
+            raise AssertionError(f"{len(seen['cuda'])} / {len(seen['cpu'])}"
+                                 f" routings, want {n_calls}")
+        agreement = routing_agreement(seen["cuda"], seen["cpu"], cfg.topk)
+        if dtype_name == "float32":
+            for i, (a, b) in enumerate(zip(seen["cuda"], seen["cpu"])):
+                if not same_routing(a, b):
+                    raise AssertionError(f"{OLMOE} f32 routing call {i} "
+                                         f"differs card vs cpu")
+            out["float32"] = {"worst": hold_pairs(pairs, dtype_name),
+                              "routing": agreement}
+            del card, cpu
+            continue
+        # bf16: routing is held on identical inputs, one block
+        diff = max(float((a - b).abs().max()) for what, a, b in pairs
+                   if what.startswith("logits"))
+        out["bfloat16 model"] = {"routing": agreement,
+                                 "logits_max_abs_diff": diff}
+        x = torch.as_tensor(rng.standard_normal((1, S, cfg.d_model)),
+                            dtype=torch.float32).to(torch.bfloat16)
+        ys, block_routes = {}, {}
+        for dev, model in (("cuda", card), ("cpu", cpu)):
+            blk = model.blocks[0].moe
+            with Routes() as r, torch.no_grad():
+                ys[dev] = moe_block_local(
+                    x.to(dev), blk.router, blk.w_gate, blk.w_up, blk.w_down,
+                    topk=cfg.topk, capacity_factor=cfg.capacity_factor)[0]
+            block_routes[dev], = r.seen
+        if not same_routing(block_routes["cuda"], block_routes["cpu"]):
+            raise AssertionError(f"{OLMOE} bf16 block routing differs card "
+                                 f"vs cpu on identical inputs")
+        out["bfloat16 block"] = hold_pairs(
+            [("moe y", ys["cuda"].float().cpu(), ys["cpu"].float())],
+            dtype_name)
+        del card, cpu
+    cfg = dataclasses.replace(get_config(OLMOE), n_layers=2,
+                              dtype="float32")
+    if cfg.remat != "full":
+        raise AssertionError(f"{OLMOE}'s config remats {cfg.remat!r}")
+    out["train_step float32"] = train_card_vs_cpu("float32", seed=seed, S=S,
+                                                  cfg=cfg)
+    torch.cuda.empty_cache()
+    return out
+
+
+def vlm_serving(rec_flash, seed=1, S=256, steps=2):
+    """15 (c): qwen2-vl-72b at full width cut to ``VLM_LAYERS`` layers:
+    ``serve_demo``'s vlm feed on an image grid; then 1 layer card against
+    CPU in f32 (prefill of embeds on the grid, decode fed embeds)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config(QWEN_VL), n_layers=VLM_LAYERS)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    feed = grid_feed(cfg)
+    serve(model, cfg, ((1, 256),), 2, seed=99, feed=feed)  # warm-up
+    for o in (sops, fops):
+        o.reset_launches()
+    with rec_flash:
+        records = serve(model, cfg, VLM_BATCHES, VLM_NEW_TOKENS, seed=0,
+                        feed=feed)
+    launches = {"ssd": sops.LAUNCHES["ssd"],
+                "flash_attention": fops.LAUNCHES["flash_attention"]}
+    check_served(records, cfg.n_layers, QWEN_VL)
+    del model
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(cfg, n_layers=1, dtype="float32")
+    need_host(cfg, f"{QWEN_VL} 1 layer card vs cpu")
+    card, cpu = card_and_cpu(cfg, seed)
+    rng = np.random.default_rng(seed)
+    prompt = {k: v.cpu() for k, v in grid_feed(cfg)(rng, 1, S).items()}
+    feeds = [{"embeds": torch.as_tensor(
+        rng.standard_normal((1, 1, cfg.d_model)), dtype=torch.float32)}
+        for _ in range(steps)]
+    worst = hold_pairs(serve_both(cfg, card, cpu, prompt, feeds, S),
+                       "float32")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {"params": n_params, "records": records, "launches": launches,
+            "card_vs_cpu": worst}
+
+
+def audio_encode(rec_flash, seed=1, S=300):
+    """15 (d): hubert-xlarge at full width and depth through
+    ``step_fn_for(cfg, "encode")`` over 4 x 1500 frames; then 6 layers
+    card against CPU, f32 and bf16."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.models import init_params
+    from repro_torch.runtime import step_fn_for
+    cfg = get_config(HUBERT)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    encode = step_fn_for(cfg, "encode")
+    rng = np.random.default_rng(0)
+
+    def embeds(Bsz, frames):
+        return {"embeds": torch.as_tensor(
+            rng.standard_normal((Bsz, frames, cfg.d_model)),
+            dtype=torch.float32, device="cuda")}
+    batch = embeds(*AUDIO_BATCH)
+    encode(model, batch)  # warm-up at the timed shape, not counted
+    secs = []
+    for _ in range(3):
+        for o in (sops, fops):
+            o.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        with rec_flash:
+            t0 = time.perf_counter()
+            logits = encode(model, batch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        launches = {"ssd": sops.LAUNCHES["ssd"],
+                    "flash_attention": fops.LAUNCHES["flash_attention"]}
+        if launches != {"ssd": 0, "flash_attention": cfg.n_layers}:
+            raise AssertionError(f"{HUBERT} encode launched {launches}")
+        if logits.shape != (*AUDIO_BATCH, cfg.vocab) \
+                or not torch.isfinite(logits).all():
+            raise AssertionError(f"{HUBERT} encode logits {logits.shape}")
+    median = float(np.median(secs))
+    rec = {"params": n_params, "batch": AUDIO_BATCH, "encode_s": median,
+           "encode_s_runs": secs,
+           "frames_per_s": AUDIO_BATCH[0] * AUDIO_BATCH[1] / median,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches}
+    del model, logits, batch
+    torch.cuda.empty_cache()
+    for dtype_name in ("float32", "bfloat16"):
+        small = dataclasses.replace(cfg, n_layers=AUDIO_CHECK_LAYERS,
+                                    dtype=dtype_name)
+        card, cpu = card_and_cpu(small, seed)
+        x = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+            (1, S, cfg.d_model)), dtype=torch.float32)
+        step = step_fn_for(small, "encode")
+        got = step(card, {"embeds": x.cuda()}).cpu()
+        want = step(cpu, {"embeds": x})
+        rec[f"card_vs_cpu {dtype_name}"] = hold_pairs(
+            [("encode logits", got, want)], dtype_name)
+        del card, cpu
+    return rec
+
+
+def family_flash_timings(shapes, launches, err):
+    """15 (e): ``flash_attention`` against its plain version at every shape
+    (a), (c) and (d) launched (bf16, phase 8's tolerance), then timed there
+    beside the plain version, its bound and ``scaled_dot_product_attention``
+    with the same causality (``lm_kernel_timings``' method)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fops
+    flash, _ = phase_shape_cases(set(), shapes)
+    check_lm_kernels(flash, [], err)
+    out = []
+    for name, (q, k, v, causal, window) in flash:
+        Bsz, S, H, hd = q.shape
+        K = k.shape[2]
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ms = time_ms(lambda: fops.flash_attention(q, k, v, causal=causal,
+                                                  window=window))
+        plain_ms = time_ms(lambda: fops.ref.flash_attention(
+            q, k, v, causal=causal, window=window), reps=5)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=H != K))
+        # each input read once, the output written once; q.k and p.v over
+        # the pairs the mask keeps (causal: the kernel skips tiles above
+        # the frontier)
+        pairs = S * (S + 1) // 2 if causal else S * S
+        nbytes = (2 * Bsz * S * H * hd + 2 * Bsz * S * K * hd) * 2
+        nops = Bsz * H * pairs * 4 * hd
+        bound_ms, bound_by = _bound(nbytes, nops)
+        out.append({"shape": [Bsz, S, S, H, K, hd], "causal": causal,
+                    "path": launches[(Bsz, S, H, K, hd, causal)], "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bytes": nbytes, "ops": nops})
+        del q, k, v, qt, kt, vt
+    return out
+
+
+def families(kernels, err):
+    """Phase 15 (see the module docstring); adds the per-shape times to the
+    ``flash_attention`` record of ``kernels``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    rec_flash = ShapeRecorder(fops, "flash_attention", lambda q, k, v, **kw: (
+        q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+        q.shape[3], kw.get("causal"), kw.get("window"), q.dtype))
+    t0 = time.perf_counter()
+    a = olmoe_serving(rec_flash)
+    for r in a["records"]:
+        d = r["moe_dropped_frac"]
+        log(f"phase 15: {OLMOE} {r['requests']} x {r['prompt']} tokens: "
+            f"prefill {r['prefill_s']:.4f} s, decode {r['new_tokens']} "
+            f"tokens in {r['decode_s']:.4f} s = {r['decode_tok_per_s']:.1f} "
+            f"tokens/s, peak {r['peak_gb']:.2f} GB; moe_dropped_frac mean "
+            f"{sum(d) / len(d):.4f} (layers {min(d):.4f}-{max(d):.4f}); "
+            f"launches per prefill {r['prefill_launches']}, in decode "
+            f"{r['decode_launches']}; logits finite")
+    log(f"phase 15: {OLMOE} main-path launches {a['launches']}; one MoE "
+        f"block twice at {SERVE_BATCHES[0]} bf16: bitwise equal; prefill "
+        f"profile " + json.dumps(a["profile"]))
+    log(f"phase 15: {OLMOE} decode profile " + json.dumps(
+        a["profile_decode"]))
+    b = olmoe_card_vs_cpu()
+    log(f"phase 15: {OLMOE} 2 layers card == cpu: f32 routing identical at "
+        f"every call ({b['float32']['routing']['tokens']} token routings), "
+        f"logits and caches max abs diff "
+        f"{max(d for d, _, _ in b['float32']['worst'].values()):.3g}; bf16 "
+        f"block on identical inputs: routing identical, y "
+        f"{b['bfloat16 block']['moe y']}; bf16 model routing "
+        f"{b['bfloat16 model']['routing']}, logits max abs diff (not held) "
+        f"{b['bfloat16 model']['logits_max_abs_diff']:.3g}; f32 train_step "
+        f"(remat full) loss (diff, value, rel) "
+        f"{b['train_step float32']['loss']}, max abs diff over the "
+        f"gradients and parameters "
+        f"{max(d for d, _, _ in b['train_step float32'].values()):.3g}")
+    c = vlm_serving(rec_flash)
+    for r in c["records"]:
+        log(f"phase 15: {QWEN_VL} {VLM_LAYERS} layers, {r['requests']} x "
+            f"{r['prompt']} embeds on a {VLM_GRID_WIDTH}-wide grid: prefill "
+            f"{r['prefill_s']:.4f} s, decode {r['new_tokens']} tokens in "
+            f"{r['decode_s']:.4f} s = {r['decode_tok_per_s']:.1f} tokens/s,"
+            f" peak {r['peak_gb']:.2f} GB; launches per prefill "
+            f"{r['prefill_launches']}; logits finite")
+    log(f"phase 15: {QWEN_VL} 1 layer f32 card == cpu, max abs diff "
+        f"{max(d for d, _, _ in c['card_vs_cpu'].values()):.3g} "
+        + json.dumps(c["card_vs_cpu"]))
+    d = audio_encode(rec_flash)
+    log(f"phase 15: {HUBERT} encode {d['batch'][0]} x {d['batch'][1]} frames"
+        f" in {d['encode_s']:.4f} s (median of "
+        f"{[round(x, 4) for x in d['encode_s_runs']]}) = "
+        f"{d['frames_per_s']:.1f} frames/s, "
+        f"peak {d['peak_gb']:.2f} GB, launches {d['launches']}; "
+        f"{AUDIO_CHECK_LAYERS} layers card == cpu f32 "
+        f"{d['card_vs_cpu float32']}, bf16 {d['card_vs_cpu bfloat16']}")
+    # the path and launches behind each shape, keyed as the cases' shapes
+    paths = {}
+    for arch, batches, per in ((OLMOE, a["records"], "prefill"),
+                               (QWEN_VL, c["records"], "prefill"),
+                               (HUBERT, [d], "encode")):
+        cfg = get_config(arch)
+        for r in batches:
+            Bsz, S = (r["requests"], r["prompt"]) if per == "prefill" \
+                else r["batch"]
+            n = r["prefill_launches"] if per == "prefill" else r["launches"]
+            paths[(Bsz, S, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                   cfg.causal)] = {"model": arch, f"launches_per_{per}":
+                                   n["flash_attention"]}
+    timed = family_flash_timings(set(rec_flash.seen), paths, err)
+    for e in timed:
+        log(f"phase 15: flash_attention {e['shape']} causal={e['causal']} "
+            f"({e['path']['model']}): {e['ms']:.4f} ms (plain "
+            f"{e['plain_ms']:.4f}, library {e['library_ms']:.4f}, bound "
+            f"{e['bound_ms']:.4f} by {e['bound_by']}); == plain")
+    record = next(k for k in kernels if k["name"] == "flash_attention")
+    record["families"] = timed
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s; records " + json.dumps(
+        {"olmoe": {k: v for k, v in a.items()
+                   if not k.startswith("profile")},
+         "olmoe_card_vs_cpu": b, "qwen2_vl": c, "hubert": d}, default=str))
+
+
+def families_bench():
+    """Phase 15 alone on the card (with its builds), for bring-up."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fops
+    log(device_line())
+    build.build_all([fops.SOURCE])
+    kernels = [{"name": "flash_attention"}]
+    err = dict.fromkeys(list(REPLACES), 0.0)
+    families(kernels, err)
+    print(json.dumps({"kernels": kernels}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2439,6 +3028,9 @@ def main() -> int:
     t0 = time.perf_counter()
     training(kernels, err, built)
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
+
+    # 15. the moe, vlm and audio families
+    families(kernels, err)
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,8 +15,10 @@ constructed directly.  The model, its weights (from a seeded
 ``torch.Generator``) and the prediction server live on ``device`` (None
 means the card).  Prompt lengths and tokens come from the same seeded numpy
 stream as the JAX reference's launcher, so both admit the same batches.
-The dense, ssm and hybrid families are served; moe, vlm and audio raise
-:class:`NotImplementedError` (see :mod:`repro_torch.models.model`).
+A vlm model is fed its stubbed vision frontend's output: ``embeds`` with
+3-axis positions at prefill, zero embeds at decode.  An encoder-only
+(audio) model has no decode loop and raises ``SystemExit``, as the
+reference's launcher does.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
       --requests 12 [--device cpu]
@@ -38,7 +40,7 @@ from repro_torch.models import init_params
 from repro_torch.runtime import make_decode_step, make_prefill_step
 from repro_torch.serve import PredictionServer
 
-__all__ = ["serve_demo", "kv_envelope"]
+__all__ = ["serve_demo", "kv_envelope", "vlm_feed"]
 
 
 def kv_envelope(cfg, batch: int, prompt: int, new_tokens: int) -> np.ndarray:
@@ -54,6 +56,17 @@ def kv_envelope(cfg, batch: int, prompt: int, new_tokens: int) -> np.ndarray:
     return np.asarray(curve)
 
 
+def vlm_feed(cfg, rng, Bsz: int, S: int, device) -> dict:
+    """A vlm prompt batch as the stubbed frontend gives it: float32
+    ``embeds`` (B, S, D) drawn from ``rng``, and every position id on all
+    three M-RoPE axes, as the reference's launcher feeds it."""
+    embeds = torch.as_tensor(rng.standard_normal((Bsz, S, cfg.d_model)),
+                             dtype=torch.float32, device=device)
+    pos = torch.arange(S, dtype=torch.int32, device=device)
+    return {"embeds": embeds,
+            "positions": pos[None, :, None].expand(Bsz, S, 3)}
+
+
 def serve_demo(arch: str, *, requests: int = 12, max_batch: int = 4,
                prompt_lens=(32, 64, 96), new_tokens: int = 16,
                budget_gb: float = 2.0, seed: int = 0, method: str = "ks+",
@@ -63,9 +76,10 @@ def serve_demo(arch: str, *, requests: int = 12, max_batch: int = 4,
     ``elapsed_s``."""
     dev = resolve_device(device)
     cfg = smoke_config(arch)
+    if cfg.is_encoder_only:
+        raise SystemExit(f"{arch} is encoder-only; use encode benchmarks")
     rng = np.random.default_rng(seed)
     queue: List[int] = [int(rng.choice(prompt_lens)) for _ in range(requests)]
-    # the weights first: a family the port does not serve raises here
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
                         device=dev)
 
@@ -101,13 +115,19 @@ def serve_demo(arch: str, *, requests: int = 12, max_batch: int = 4,
             Bsz = len(batch)
             toks = torch.as_tensor(rng.integers(0, cfg.vocab, (Bsz, S)),
                                    dtype=torch.int32, device=dev)
+            feed = {"tokens": toks}
+            if cfg.family == "vlm":
+                feed = vlm_feed(cfg, rng, Bsz, S, dev)
             prefill = make_prefill_step(cfg, capacity=S + new_tokens)
-            logits, cache = prefill(model, {"tokens": toks})
+            logits, cache = prefill(model, feed)
             tok = logits[:, -1].argmax(-1).to(torch.int32)
             for t in range(new_tokens):
                 pos = torch.full((Bsz,), S + t, dtype=torch.int32,
                                  device=dev)
-                logits, cache = decode(model, {"tokens": tok}, cache, pos)
+                db = ({"tokens": tok} if cfg.family != "vlm" else
+                      {"embeds": torch.zeros((Bsz, 1, cfg.d_model),
+                                             device=dev)})
+                logits, cache = decode(model, db, cache, pos)
                 tok = logits[:, -1].argmax(-1).to(torch.int32)
             served += Bsz
             batches += 1

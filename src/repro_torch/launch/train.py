@@ -1,8 +1,9 @@
 """The training loop: real steps on one card, fault-tolerant.
 
-Counterpart of the reference's ``launch/train.py``.  Runs any ``--arch`` of
-the dense, ssm and hybrid families (smoke-reduced by default; ``--full``
-for the published widths) through the production loop: deterministic data
+Counterpart of the reference's ``launch/train.py``.  Runs any ``--arch``
+(smoke-reduced by default; ``--full`` for the published widths; the vlm
+and audio families take ``host_batch``'s stubbed-frontend ``embeds``, vlm
+its 3-axis ``positions``) through the production loop: deterministic data
 per step, async atomic checkpoints in the reference's layout (a checkpoint
 of either package resumes in the other), ``--resume``, simulated
 preemption (``--kill-at-step``), the straggler count and the KS+ memory

@@ -1,6 +1,7 @@
-"""Model zoo of the port: the dense, ssm (Mamba2) and hybrid (Zamba2)
-families, served through ``prefill`` / ``decode_step`` and trained through
-``forward_train``.
+"""Model zoo of the port: the dense, moe, vlm (M-RoPE), audio
+(encoder-only), ssm (Mamba2) and hybrid (Zamba2) families, served through
+``prefill`` / ``decode_step`` (audio through
+``runtime.make_encode_step``) and trained through ``forward_train``.
 
 ``load_jax_params`` carries the reference package's weights (as numpy
 arrays) into the port's :class:`Model`, so the two can be compared;

@@ -1,16 +1,18 @@
-"""Block definitions and apply functions for the dense and mamba2 kinds.
+"""Block definitions and apply functions for the dense, moe and mamba2 kinds.
 
 Counterpart of the reference's ``models/blocks.py``:
 
-* dense  — pre-norm GQA attention + SwiGLU MLP (optional qk-norm);
+* dense  — pre-norm GQA attention + SwiGLU MLP (optional qk-norm, M-RoPE);
+* moe    — pre-norm GQA attention + top-k MoE MLP (``models/moe.py``);
 * mamba2 — pre-norm Mamba2 (SSD) mixer.
 
 Hybrid models (Zamba2) put one weight-shared dense block after every
-``shared_attn_every`` mamba2 blocks (see ``model.py``).  The parameter
-declarations (``*_param_defs``) keep the reference's shapes and init kinds;
-the modules hold them as ``nn.Parameter``s, and the ``apply_*`` functions
-keep the reference's names and bodies, with each module's ``forward`` and
-``decode`` calling them.  The MoE block (ROADMAP A11) and M-RoPE (vlm) wait.
+``shared_attn_every`` mamba2 blocks (see ``model.py``); the vlm and audio
+families are stacks of dense blocks (M-RoPE, or non-causal attention).
+The parameter declarations (``*_param_defs``) keep the reference's shapes
+and init kinds; the modules hold them as ``nn.Parameter``s, and the
+``apply_*`` functions keep the reference's names and bodies, with each
+module's ``forward`` and ``decode`` calling them.
 """
 
 from __future__ import annotations
@@ -23,16 +25,19 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.models.attention import append_kv, decode_gqa_attention
-from repro_torch.models.layers import apply_rope, rmsnorm, swiglu
+from repro_torch.models.layers import (apply_mrope, apply_rope, rmsnorm,
+                                      swiglu)
 from repro_torch.models.mamba2 import mamba2_decode, mamba2_mixer
+from repro_torch.models.moe import moe_block, moe_block_local
 from repro_torch.models.params import ParamDef, ParamModule
 
 __all__ = [
-    "CONV_KW", "attn_param_defs", "mlp_param_defs", "mamba2_param_defs",
-    "DenseBlock", "Mamba2Block",
+    "CONV_KW", "attn_param_defs", "mlp_param_defs", "moe_param_defs",
+    "mamba2_param_defs", "moe_block_defs",
+    "DenseBlock", "MoEBlock", "Mamba2Block",
     "apply_attn", "apply_attn_decode", "apply_dense_block",
-    "apply_dense_block_decode", "apply_mamba2_block",
-    "apply_mamba2_block_decode",
+    "apply_dense_block_decode", "apply_moe_block", "apply_moe_block_decode",
+    "apply_mamba2_block", "apply_mamba2_block_decode",
 ]
 
 CONV_KW = 4  # Mamba2 depthwise conv kernel width
@@ -70,6 +75,18 @@ def mlp_param_defs(cfg) -> Dict[str, ParamDef]:
     }
 
 
+def moe_param_defs(cfg) -> Dict[str, ParamDef]:
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
+    return {
+        "ln": ParamDef((D,), init="ones"),
+        "router": ParamDef((D, E)),
+        "w_gate": ParamDef((E, D, F)),
+        "w_up": ParamDef((E, D, F)),
+        "w_down": ParamDef((E, F, D), init_scale=out_scale),
+    }
+
+
 def mamba2_param_defs(cfg) -> Dict[str, ParamDef]:
     D, din = cfg.d_model, cfg.d_inner
     H, G, N = cfg.ssm_heads, cfg.ssm_groups, cfg.ssm_state
@@ -98,6 +115,10 @@ def mamba2_param_defs(cfg) -> Dict[str, ParamDef]:
     }
 
 
+def moe_block_defs(cfg) -> Dict[str, Dict[str, ParamDef]]:
+    return {"attn": attn_param_defs(cfg), "moe": moe_param_defs(cfg)}
+
+
 # ---------------------------------------------------------------------------
 # apply functions
 # ---------------------------------------------------------------------------
@@ -116,6 +137,12 @@ def _project_qkv(p, cfg, h):
     return q, k, v
 
 
+def _rope(cfg, x, positions):
+    if cfg.mrope_sections is not None:
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    return apply_rope(x, positions, cfg.rope_theta)
+
+
 def apply_attn(p, cfg, h: torch.Tensor, positions: torch.Tensor, *,
                window: Optional[int] = None, return_kv: bool = False):
     """Attention sublayer (pre-norm, residual) for prefill.
@@ -125,8 +152,8 @@ def apply_attn(p, cfg, h: torch.Tensor, positions: torch.Tensor, *,
     resid = h
     h = rmsnorm(h, p.ln, cfg.norm_eps)
     q, k, v = _project_qkv(p, cfg, h)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = _rope(cfg, q, positions)
+    k = _rope(cfg, k, positions)
     out = attn_ops.flash_attention(q, k, v, causal=cfg.causal, window=window)
     B, S = out.shape[:2]
     out = out.reshape(B, S, cfg.n_heads * cfg.hd) @ p.wo.to(h.dtype)
@@ -144,8 +171,10 @@ def apply_attn_decode(p, cfg, h: torch.Tensor, pos: torch.Tensor,
     h = rmsnorm(h, p.ln, cfg.norm_eps)
     q, k, v = _project_qkv(p, cfg, h)
     positions = pos[:, None]
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope_sections is not None:  # one id on all three axes
+        positions = pos[:, None, None].expand(pos.shape[0], 1, 3)
+    q = _rope(cfg, q, positions)
+    k = _rope(cfg, k, positions)
     append_kv(cache_k, cache_v, k, v, pos)
     out = decode_gqa_attention(q, cache_k, cache_v, kv_positions, pos,
                                window=window)
@@ -169,6 +198,30 @@ def apply_dense_block_decode(p, cfg, h, pos, cache_k, cache_v, kv_positions,
     h = apply_attn_decode(p.attn, cfg, h, pos, cache_k, cache_v,
                           kv_positions, window=window)
     return _mlp(p.mlp, cfg, h)
+
+
+def _moe(p, cfg, h):
+    """The MoE sublayer (pre-norm, residual): ``(h, aux)``."""
+    fn = moe_block_local if cfg.moe_local_dispatch else moe_block
+    out, aux = fn(rmsnorm(h, p.ln, cfg.norm_eps), p.router, p.w_gate,
+                  p.w_up, p.w_down, topk=cfg.topk,
+                  capacity_factor=cfg.capacity_factor)
+    return h + out, aux
+
+
+def apply_moe_block(p, cfg, h, positions, window=None, return_kv=False):
+    """Returns ``(h, (k, v) or None, aux)``."""
+    h, kv = apply_attn(p.attn, cfg, h, positions, window=window,
+                       return_kv=return_kv)
+    h, aux = _moe(p.moe, cfg, h)
+    return h, kv, aux
+
+
+def apply_moe_block_decode(p, cfg, h, pos, cache_k, cache_v, kv_positions,
+                           window=None):
+    h = apply_attn_decode(p.attn, cfg, h, pos, cache_k, cache_v,
+                          kv_positions, window=window)
+    return _moe(p.moe, cfg, h)[0]
 
 
 def apply_mamba2_block(p, cfg, h):
@@ -207,6 +260,24 @@ class DenseBlock(nn.Module):
     def decode(self, h, pos, cache_k, cache_v, kv_positions, window=None):
         return apply_dense_block_decode(self, self.cfg, h, pos, cache_k,
                                         cache_v, kv_positions, window)
+
+
+class MoEBlock(nn.Module):
+    """Pre-norm GQA attention + top-k MoE MLP."""
+
+    def __init__(self, cfg, generator, device):
+        super().__init__()
+        self.cfg = cfg
+        for name, defs in moe_block_defs(cfg).items():
+            setattr(self, name, ParamModule(defs, generator, device))
+
+    def forward(self, h, positions, window=None, return_kv=False):
+        return apply_moe_block(self, self.cfg, h, positions, window,
+                               return_kv)
+
+    def decode(self, h, pos, cache_k, cache_v, kv_positions, window=None):
+        return apply_moe_block_decode(self, self.cfg, h, pos, cache_k,
+                                      cache_v, kv_positions, window)
 
 
 class Mamba2Block(nn.Module):

@@ -1,18 +1,20 @@
-"""Shared layers: RMSNorm, rotary embedding, SwiGLU MLP, embedding lookup.
+"""Shared layers: RMSNorm, rotary embeddings (RoPE / M-RoPE), SwiGLU MLP,
+embedding lookup.
 
 Counterparts of the reference's ``models/layers.py``, with its dtype rules:
 the norm and the rotation run in float32 and cast back; weights are cast
-to the activations' dtype at each use.  M-RoPE (``apply_mrope``) waits for
-the vlm family.
+to the activations' dtype at each use.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 __all__ = ["rmsnorm", "swiglu", "rope_frequencies", "apply_rope",
-           "embed_lookup"]
+           "apply_mrope", "embed_lookup"]
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
@@ -51,6 +53,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     """Rotary embedding.  x: (B, S, H, hd); positions: (B, S) int."""
     inv = rope_frequencies(x.shape[-1], theta, x.device)
     ang = positions.float()[..., None] * inv               # (B, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    return _rotate(x.float(), cos, sin).to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, int, int]) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): the hd/2 rotary dimensions are split into
+    (temporal, height, width) sections, each rotated by its own position id.
+
+    x: (B, S, H, hd); positions3: (B, S, 3) int; sum(sections) == hd // 2.
+    """
+    hd = x.shape[-1]
+    if sum(sections) != hd // 2:
+        raise ValueError(f"M-RoPE sections {sections} must sum to {hd // 2}")
+    inv = rope_frequencies(hd, theta, x.device)
+    # the section (0, 1 or 2) of each rotary dimension
+    sec_id = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.as_tensor(sections, device=x.device))
+    pos = positions3.float()[..., sec_id]                  # (B, S, hd/2)
+    ang = pos * inv
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     return _rotate(x.float(), cos, sin).to(x.dtype)

@@ -1,10 +1,13 @@
 """Model assembly: embed → blocks → norm → head; serving and training.
 
-Counterpart of the reference's ``models/model.py`` for the families the
-port runs: ``dense``, ``ssm`` (Mamba2) and ``hybrid`` (Zamba2: Mamba2
-blocks with one weight-shared dense block after every
-``shared_attn_every``-th of them).  ``moe``, ``vlm`` and ``audio`` raise
-:class:`NotImplementedError` (ROADMAP A11a).
+Counterpart of the reference's ``models/model.py`` for all six families:
+``dense``, ``moe`` (attention + top-k experts, ``models/moe.py``), ``vlm``
+(dense blocks under M-RoPE, fed ``embeds`` and 3-axis ``positions`` by a
+stubbed vision frontend), ``audio`` (encoder-only dense blocks with
+non-causal attention, fed ``embeds``; no cache, no decode: see
+``runtime.make_encode_step``), ``ssm`` (Mamba2) and ``hybrid`` (Zamba2:
+Mamba2 blocks with one weight-shared dense block after every
+``shared_attn_every``-th of them).
 
 The reference stacks each parameter over a scanned layer axis (hybrids over
 ``(L/every, every)``) and runs ``lax.scan``; here a :class:`Model` holds one
@@ -26,10 +29,11 @@ Entry points, with the reference's names:
 * :func:`prefill` / :func:`decode_step` — run where the model's parameters
   are.  ``decode_step`` updates the cache's tensors in place and returns
   the same dict;
-* :func:`forward_train` — ``(loss, metrics)`` of a batch of tokens and
-  labels through the reference's fused LM head and cross entropy, with
-  autograd recording (on the card the forward and backward kernels of
-  attention and SSD);
+* :func:`forward_train` — ``(loss, metrics)`` of a batch of tokens (or
+  embeds) and labels through the reference's fused LM head and cross
+  entropy, with autograd recording (on the card the forward and backward
+  kernels of attention and SSD); an MoE model adds ``0.01 ·
+  moe_aux_loss``, its aux terms averaged over the layers;
 * :func:`export_tree` / :func:`import_tree` — named tensors (parameters,
   AdamW moments) to and from the reference's stacked tree of numpy arrays,
   the layout of its checkpoints.
@@ -47,7 +51,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import update_positions
-from repro_torch.models.blocks import CONV_KW, DenseBlock, Mamba2Block
+from repro_torch.models.blocks import (CONV_KW, DenseBlock, Mamba2Block,
+                                      MoEBlock)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_lookup, rmsnorm
 from repro_torch.models.params import ParamDef, init_param
@@ -56,19 +61,12 @@ __all__ = ["Model", "init_params", "load_jax_params", "decayed",
            "export_tree", "import_tree", "tree_shapes", "cache_shapes",
            "init_cache", "prefill", "decode_step", "forward_train"]
 
-_WAITING = {
-    "moe": "the MoE family waits for ROADMAP A11a (MoE, VLM and audio)",
-    "vlm": "the VLM family (M-RoPE) waits for ROADMAP A11a (MoE, VLM and "
-           "audio)",
-    "audio": "the audio family (encoder-only) waits for ROADMAP A11a (MoE, "
-             "VLM and audio)",
-}
+_ATTN = ("dense", "vlm", "audio")   # stacks of dense blocks
+_KV = ("dense", "moe", "vlm")       # one k/v cache entry per layer
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in _WAITING:
-        raise NotImplementedError(f"{cfg.name}: {_WAITING[cfg.family]}")
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in _ATTN + ("moe", "ssm", "hybrid"):
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.family == "hybrid" and cfg.n_layers % cfg.shared_attn_every:
         raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
@@ -104,7 +102,8 @@ class Model(nn.Module):
         D, V = cfg.d_model, cfg.vocab
         self.embed = nn.Parameter(init_param(ParamDef((V, D)), generator,
                                              device))
-        block = DenseBlock if cfg.family == "dense" else Mamba2Block
+        block = (DenseBlock if cfg.family in _ATTN else
+                 MoEBlock if cfg.family == "moe" else Mamba2Block)
         self.blocks = nn.ModuleList(block(cfg, generator, device)
                                     for _ in range(cfg.n_layers))
         if cfg.family == "hybrid":
@@ -239,17 +238,17 @@ def cache_shapes(cfg: ModelConfig, batch: int, capacity: int) -> Dict:
     """``{name: (shape, dtype)}`` of the serving cache, as the reference's
     ``cache_shapes``: k/v per attention application, one ``kv_positions``
     shared by all of them, float32 SSM states and compute-dtype conv tails
-    per Mamba2 block."""
+    per Mamba2 block; empty for an encoder-only (audio) model."""
     _check_family(cfg)
     dt = _dtype(cfg.dtype)
     L = _n_scan(cfg)
     out: Dict = {}
     K, hd = cfg.n_kv_heads, cfg.hd
-    if cfg.family == "dense":
+    if cfg.family in _KV:
         out["k"] = ((L, batch, capacity, K, hd), dt)
         out["v"] = ((L, batch, capacity, K, hd), dt)
         out["kv_positions"] = ((batch, capacity), torch.int32)
-    else:
+    elif cfg.family in ("ssm", "hybrid"):
         H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
         conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * N
         nl = (L, cfg.shared_attn_every) if cfg.family == "hybrid" else (L,)
@@ -281,17 +280,29 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
 
 
 def _embed_inputs(model: Model, cfg: ModelConfig, batch: Dict):
+    if "embeds" in batch:  # a stubbed modality frontend (vlm / audio)
+        return batch["embeds"].to(_dtype(cfg.dtype))
     return embed_lookup(model.embed, batch["tokens"], _dtype(cfg.dtype))
 
 
-def _default_positions(Bsz: int, S: int, device) -> torch.Tensor:
+def _positions(Bsz: int, S: int, device) -> torch.Tensor:
     return torch.arange(S, dtype=torch.int32,
                         device=device)[None].expand(Bsz, S)
 
 
+def _default_positions(cfg: ModelConfig, Bsz: int, S: int,
+                       device) -> torch.Tensor:
+    """``(B, S)`` token positions, or ``(B, S, 3)`` under M-RoPE (the same
+    id on all three axes)."""
+    pos = _positions(Bsz, S, device)
+    if cfg.mrope_sections is not None:
+        pos = pos[..., None].expand(Bsz, S, 3)
+    return pos
+
+
 def _scan_steps(model: Model, cfg: ModelConfig):
     """The reference's scan steps as ``(blocks, shared block or None)``: one
-    block each for dense / ssm, a super-layer of ``every`` Mamba2 blocks
+    block each for the other families, a super-layer of ``every`` Mamba2 blocks
     and the shared block for a hybrid (``model.py:233``)."""
     if cfg.family != "hybrid":
         return [([blk], None) for blk in model.blocks]
@@ -302,12 +313,17 @@ def _scan_steps(model: Model, cfg: ModelConfig):
 
 def _scan_step(cfg: ModelConfig, blocks, shared, h, positions,
                collect_cache: bool):
-    """One scan step.  Returns ``(h, kvs, ssms, convs)``."""
+    """One scan step.  Returns ``(h, kvs, ssms, convs, aux)``, ``aux`` the
+    MoE block's aux dict (empty for the other families)."""
     window = cfg.sliding_window
-    kvs, ssms, convs = [], [], []
+    kvs, ssms, convs, aux = [], [], [], {}
     for blk in blocks:
-        if cfg.family == "dense":
+        if cfg.family in _ATTN:
             h, kv = blk(h, positions, window=window, return_kv=collect_cache)
+            kvs.append(kv)
+        elif cfg.family == "moe":
+            h, kv, aux = blk(h, positions, window=window,
+                             return_kv=collect_cache)
             kvs.append(kv)
         else:
             h, ssm, conv = blk(h)
@@ -316,34 +332,42 @@ def _scan_step(cfg: ModelConfig, blocks, shared, h, positions,
     if shared is not None:
         h, kv = shared(h, positions, window=window, return_kv=collect_cache)
         kvs.append(kv)
-    return h, kvs, ssms, convs
+    return h, kvs, ssms, convs, aux
 
 
 def _forward_seq(model: Model, cfg: ModelConfig, h, positions,
                  collect_cache: bool, remat: bool = False):
-    """Shared train/prefill body.  Returns ``(h, cache_ys)``: per layer (and
-    attention application) the k/v, final SSM states and conv tails when
-    ``collect_cache``, else None.  With ``remat`` (training only) each scan
-    step keeps only its input for the backward and runs again there."""
-    kvs, ssms, convs = [], [], []
+    """Shared train/prefill body.  Returns ``(h, cache_ys, aux)``:
+    ``cache_ys`` per layer (and attention application) the k/v, final SSM
+    states and conv tails when ``collect_cache``, else None; ``aux`` each
+    MoE aux term averaged over the layers (empty for the other families).
+    With ``remat`` (training only) each scan step keeps only its input for
+    the backward and runs again there; the aux terms come out of the
+    checkpoint with ``h``."""
+    def step_h_aux(x, blocks, shared):
+        out = _scan_step(cfg, blocks, shared, x, positions, False)
+        return out[0], out[-1]
+
+    kvs, ssms, convs, auxs = [], [], [], []
     for blocks, shared in _scan_steps(model, cfg):
         if remat:
-            h = checkpoint(
-                lambda x, b=blocks, s=shared: _scan_step(
-                    cfg, b, s, x, positions, False)[0],
-                h, use_reentrant=False)
+            h, aux = checkpoint(step_h_aux, h, blocks, shared,
+                                use_reentrant=False)
+            auxs.append(aux)
             continue
-        h, kv, ssm, conv = _scan_step(cfg, blocks, shared, h, positions,
-                                      collect_cache)
+        h, kv, ssm, conv, aux = _scan_step(cfg, blocks, shared, h,
+                                           positions, collect_cache)
         kvs += kv
         ssms += ssm
         convs += conv
+        auxs.append(aux)
+    aux = {k: torch.stack([a[k] for a in auxs]).mean() for k in auxs[0]}
     if not collect_cache:
-        return h, None
+        return h, None, aux
     ys = {"kv": kvs} if kvs else {}
     if ssms:
         ys.update(ssm=ssms, conv=convs)
-    return h, ys
+    return h, ys, aux
 
 
 def _head_logits(model: Model, cfg: ModelConfig, h) -> torch.Tensor:
@@ -377,7 +401,10 @@ def _fused_head_ce(model: Model, cfg: ModelConfig, h: torch.Tensor,
 
 def forward_train(model: Model, cfg: ModelConfig, batch: Dict):
     """Returns ``(loss, metrics)`` with autograd recording.  batch:
-    ``tokens`` (B,S) int, ``labels`` (B,S) int and optional ``positions``.
+    ``tokens`` (B,S) int or ``embeds`` (B,S,D), ``labels`` (B,S) int and
+    optional ``positions`` ((B,S,3) under M-RoPE).  metrics: ``ce_loss``,
+    for an MoE model the three aux terms averaged over the layers, and
+    ``loss`` (``ce_loss + 0.01 · moe_aux_loss`` for an MoE model).
 
     With ``cfg.logits_chunk`` and ``S > logits_chunk`` the head and cross
     entropy run over ``S // logits_chunk`` chunks, as the reference (a
@@ -388,10 +415,10 @@ def forward_train(model: Model, cfg: ModelConfig, batch: Dict):
     Bsz, S = h.shape[0], h.shape[1]
     positions = batch.get("positions")
     if positions is None:
-        positions = _default_positions(Bsz, S, h.device)
-    h, _ = _forward_seq(model, cfg, h, positions, collect_cache=False,
-                        remat=cfg.remat == "full"
-                        and torch.is_grad_enabled())
+        positions = _default_positions(cfg, Bsz, S, h.device)
+    h, _, aux = _forward_seq(model, cfg, h, positions, collect_cache=False,
+                             remat=cfg.remat == "full"
+                             and torch.is_grad_enabled())
     labels = batch["labels"]
     if cfg.logits_chunk and S > cfg.logits_chunk:
         n, c = S // cfg.logits_chunk, cfg.logits_chunk
@@ -403,22 +430,30 @@ def forward_train(model: Model, cfg: ModelConfig, batch: Dict):
         loss = total / n
     else:
         loss = _fused_head_ce(model, cfg, h, labels)
-    return loss, {"ce_loss": loss, "loss": loss}
+    metrics = dict(ce_loss=loss, **aux)
+    if "moe_aux_loss" in aux:
+        loss = loss + 0.01 * aux["moe_aux_loss"]
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 @torch.no_grad()
 def prefill(model: Model, cfg: ModelConfig, batch: Dict,
             capacity: Optional[int] = None):
     """Full-sequence forward; returns ``(last-token logits (B,1,V) f32,
-    serving cache)``.  batch: ``tokens`` (B,S) and optional ``positions``."""
+    serving cache)``.  batch: ``tokens`` (B,S) or ``embeds`` (B,S,D), and
+    optional ``positions``.  Raises ``ValueError`` for an encoder-only
+    model."""
     _check_family(cfg)
+    if cfg.is_encoder_only:
+        raise ValueError("encoder-only models have no decode/prefill cache")
     h = _embed_inputs(model, cfg, batch)
     Bsz, S = h.shape[0], h.shape[1]
     capacity = capacity or S
     positions = batch.get("positions")
     if positions is None:
-        positions = _default_positions(Bsz, S, h.device)
-    h, ys = _forward_seq(model, cfg, h, positions, collect_cache=True)
+        positions = _default_positions(cfg, Bsz, S, h.device)
+    h, ys, _ = _forward_seq(model, cfg, h, positions, collect_cache=True)
     logits = _head_logits(model, cfg, h[:, -1:, :])
 
     cache: Dict = {}
@@ -435,7 +470,7 @@ def prefill(model: Model, cfg: ModelConfig, batch: Dict,
             k = F.pad(k, (0, 0, 0, 0, 0, pad))
             v = F.pad(v, (0, 0, 0, 0, 0, pad))
         cache["k"], cache["v"] = k.contiguous(), v.contiguous()
-        kv_pos = _default_positions(Bsz, k.shape[2], h.device)
+        kv_pos = _positions(Bsz, k.shape[2], h.device)
         if ring:
             kv_pos = kv_pos + max(S - cap, 0)
         cache["kv_positions"] = torch.where(kv_pos < S, kv_pos, -1).to(
@@ -454,20 +489,27 @@ def prefill(model: Model, cfg: ModelConfig, batch: Dict,
 @torch.no_grad()
 def decode_step(model: Model, cfg: ModelConfig, batch: Dict, cache: Dict,
                 pos: torch.Tensor):
-    """One-token decode.  batch: ``tokens`` (B,); pos: (B,) int.
+    """One-token decode.  batch: ``tokens`` (B,) or ``embeds`` (B,1,D);
+    pos: (B,) int (on all three M-RoPE axes).
 
     Returns ``(logits (B,1,V) f32, cache)``; the cache's tensors are
-    updated in place.
+    updated in place.  Raises ``ValueError`` for an encoder-only model.
     """
     _check_family(cfg)
-    h = embed_lookup(model.embed, batch["tokens"][:, None], _dtype(cfg.dtype))
+    if cfg.is_encoder_only:
+        raise ValueError("encoder-only models have no decode step")
+    if "embeds" in batch:
+        h = batch["embeds"].to(_dtype(cfg.dtype))
+    else:
+        h = embed_lookup(model.embed, batch["tokens"][:, None],
+                         _dtype(cfg.dtype))
     kv_positions = cache.get("kv_positions")
     if kv_positions is not None:
         update_positions(kv_positions, pos)
     window = cfg.sliding_window
     every = cfg.shared_attn_every
     for i, blk in enumerate(model.blocks):
-        if cfg.family == "dense":
+        if cfg.family in _KV:
             h = blk.decode(h, pos, cache["k"][i], cache["v"][i],
                            kv_positions, window=window)
             continue

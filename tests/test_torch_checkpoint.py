@@ -117,7 +117,8 @@ def _assert_same(got, want):
     assert not got, sorted(got)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "llama3-8b"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "llama3-8b",
+                                  "olmoe-1b-7b"])
 def test_reference_checkpoint_restores_into_the_port(tmp_path, arch):
     jc, tc = _smoke(arch)
     params = jmodels.init_params(jc, jax.random.PRNGKey(1))
@@ -192,3 +193,21 @@ def test_train_cli_trains_a_dense_model(tmp_path):
     assert out["status"] == "done" and out["slow_steps"] >= 0
     assert out["rss_trace_gb"] and len(out["step_s"]) == 6
     assert CheckpointManager(str(tmp_path)).all_steps() == [2, 4, 6]
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-vl-72b",
+                                  "hubert-xlarge"])
+def test_train_feeds_moe_vlm_audio(tmp_path, arch):
+    """``train`` feeds ``host_batch``'s tokens, or embeds (and vlm's 3-axis
+    positions), through ``forward_train``; killed at step 2 and resumed
+    from the step-2 checkpoint, the losses are bitwise the uninterrupted
+    run's (the MoE routing included)."""
+    kw = dict(steps=4, seq=16, batch=2, ckpt_every=2, monitor=False,
+              device="cpu")
+    full = train(arch, **kw)
+    assert full["status"] == "done" and len(full["losses"]) == 4
+    assert all(np.isfinite(full["losses"]))
+    ckpt = str(tmp_path / "ckpt")
+    train(arch, ckpt_dir=ckpt, kill_at_step=3, **kw)
+    resumed = train(arch, ckpt_dir=ckpt, resume=True, **kw)
+    assert resumed["losses"] == full["losses"][2:]

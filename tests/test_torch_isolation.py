@@ -80,6 +80,8 @@ ENTRY_POINTS = {
         eager(3), seeds=[0], train_fracs=(0.5,), methods=["default"]),
     "models.init_params": lambda: init_params(
         smoke_config("zamba2-2.7b"), torch.Generator()),
+    "models.init_params(moe)": lambda: init_params(
+        smoke_config("olmoe-1b-7b"), torch.Generator()),
     "models.load_jax_params": lambda: load_jax_params(
         smoke_config("mamba2-780m"), {}),
     "models.init_cache": lambda: init_cache(
@@ -104,6 +106,8 @@ ENTRY_POINTS = {
         tenants=1, n_requests=8),
     "launch.serve.serve_demo": lambda: serve_demo("qwen3-1.7b",
                                                   requests=1),
+    "launch.serve.serve_demo(vlm)": lambda: serve_demo("qwen2-vl-72b",
+                                                       requests=1),
     "launch.train.train": lambda: train("qwen3-1.7b", steps=1,
                                         monitor=False),
 }

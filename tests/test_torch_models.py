@@ -123,7 +123,7 @@ def test_decode_after_prefill_matches_forward(arch, dtype):
     h = model.embed[tt.long()].to(getattr(torch, dtype))
     pos = torch.arange(seq + 1, dtype=torch.int32)[None]
     with torch.no_grad():
-        h, _ = _forward_seq(model, tc, h, pos, collect_cache=False)
+        h, _, _ = _forward_seq(model, tc, h, pos, collect_cache=False)
         full = _head_logits(model, tc, h)
     _, cache = prefill(model, tc, {"tokens": tt[:, :seq]}, capacity=seq + 4)
     dec, _ = decode_step(model, tc, {"tokens": tt[:, seq]}, cache,
@@ -178,11 +178,7 @@ def test_configs_match_reference(arch):
     assert port.params_count() == ref.params_count()
 
 
-PORTED = [a for a in jconfigs.ARCHS
-          if jconfigs.get_config(a).family in ("dense", "ssm", "hybrid")]
-
-
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", jconfigs.ARCHS)
 def test_full_config_param_count_matches_reference(arch):
     """The full-width model holds exactly the reference's parameters."""
     cfg = configs.get_config(arch)
@@ -192,7 +188,7 @@ def test_full_config_param_count_matches_reference(arch):
         sum(int(np.prod(s.shape)) for s in shapes)
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", jconfigs.ARCHS)
 def test_cache_shapes_match_reference(arch):
     cfg = configs.get_config(arch)
     for window in (None, 1024):
@@ -228,14 +224,104 @@ def test_init_cache_and_init_kinds():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-vl-72b",
-                                  "hubert-xlarge"])
-def test_unported_families_raise(arch):
+NEW_FAMILIES = ["olmoe-1b-7b", "qwen2-vl-72b", "hubert-xlarge"]
+
+
+@pytest.mark.parametrize("arch", NEW_FAMILIES)
+def test_moe_vlm_audio_families_build(arch):
+    """The moe, vlm and audio families build from a generator, with the
+    reference's parameter tree and serving cache (none for audio)."""
     cfg = configs.smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        init_params(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        cache_shapes(cfg, 1, 8)
+    model = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    from repro_torch.models import tree_shapes
+    got = tree_shapes(cfg, dict(model.named_parameters()))
+    want = jax.tree.map(lambda s: tuple(s.shape), jmodels.param_shapes(
+        jconfigs.smoke_config(arch)))
+    assert got == want
+    cache = init_cache(cfg, 2, 8, device="cpu")
+    assert set(cache) == set(jmodels.cache_shapes(
+        jconfigs.smoke_config(arch), 2, 8))
+    assert bool(cache) == (cfg.family != "audio")
+
+
+def _grid_positions(Bsz, n, w=8):
+    """3-axis M-RoPE ids of an image of ``n`` patches, ``w`` to a row: the
+    temporal id fixed, height and width varying."""
+    i = np.arange(n)
+    pos = np.stack([np.zeros(n), i // w, i % w], -1).astype(np.int32)
+    return np.ascontiguousarray(np.broadcast_to(pos, (Bsz, n, 3)))
+
+
+def _prompt(jc, rng, feed):
+    """(reference batch, port batch) of one prompt: tokens, or embeds with
+    a 3-axis image grid."""
+    if feed == "tokens":
+        toks = rng.integers(0, jc.vocab, (B, S)).astype(np.int32)
+        return {"tokens": jnp.asarray(toks)}, {
+            "tokens": torch.from_numpy(toks)}
+    e = rng.standard_normal((B, S, jc.d_model)).astype(np.float32)
+    pos = _grid_positions(B, S)
+    return ({"embeds": jnp.asarray(e), "positions": jnp.asarray(pos)},
+            {"embeds": torch.from_numpy(e),
+             "positions": torch.from_numpy(pos)})
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,feed", [("olmoe-1b-7b", "tokens"),
+                                       ("qwen2-vl-72b", "tokens"),
+                                       ("qwen2-vl-72b", "embeds")])
+def test_moe_vlm_serving_matches_reference(arch, feed, dtype):
+    """olmoe (MoE with the config's shard-local dispatch) and qwen2-vl
+    (M-RoPE; tokens, or embeds on an image grid with embeds fed at decode):
+    prefill logits + cache, then 4 decode steps."""
+    jc, params, tc, model = _pair(arch, dtype)
+    tol = TOL[dtype]
+    rng = np.random.default_rng(6)
+    jb, tb = _prompt(jc, rng, feed)
+    jl, jcache = jax.jit(j_make_prefill_step(jc, capacity=CAP))(params, jb)
+    tl, tcache = make_prefill_step(tc, capacity=CAP)(model, tb)
+    _close(tl, jl, tol, "prefill logits")
+    _close_cache(tcache, jcache, tol, "prefill")
+    j_dec, step = jax.jit(j_make_decode_step(jc)), make_decode_step(tc)
+    for t in range(4):
+        if feed == "tokens":
+            x = rng.integers(0, jc.vocab, (B,)).astype(np.int32)
+        else:
+            x = rng.standard_normal((B, 1, jc.d_model)).astype(np.float32)
+        jd, td = {feed: jnp.asarray(x)}, {feed: torch.from_numpy(x)}
+        pos = np.full((B,), S + t, np.int32)
+        jl, jcache = j_dec(params, jd, jcache, jnp.asarray(pos))
+        tl, tcache = step(model, td, tcache, torch.from_numpy(pos))
+        _close(tl, jl, tol, f"decode step {t} logits")
+        _close_cache(tcache, jcache, tol, f"decode step {t}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_encode_step_matches_reference(dtype):
+    """hubert (encoder-only, non-causal): every frame's logits through
+    ``step_fn_for(cfg, "encode")``; prefill and decode raise on both
+    sides."""
+    from repro.runtime import step_fn_for as j_step_fn_for
+    from repro_torch.runtime import step_fn_for
+    jc, params, tc, model = _pair("hubert-xlarge", dtype)
+    e = np.random.default_rng(7).standard_normal(
+        (B, S, jc.d_model)).astype(np.float32)
+    want = jax.jit(j_step_fn_for(jc, "encode"))(params,
+                                                {"embeds": jnp.asarray(e)})
+    got = step_fn_for(tc, "encode")(model, {"embeds": torch.from_numpy(e)})
+    assert got.shape == (B, S, jc.vocab) and got.dtype == torch.float32
+    assert not got.requires_grad
+    _close(got, want, TOL[dtype], "encode logits")
+    with pytest.raises(ValueError, match="encoder-only"):
+        jmodels.prefill(params, jc, {"embeds": jnp.asarray(e)})
+    with pytest.raises(ValueError, match="encoder-only"):
+        prefill(model, tc, {"embeds": torch.from_numpy(e)})
+    with pytest.raises(ValueError, match="encoder-only"):
+        jmodels.decode_step(params, jc, {"embeds": jnp.asarray(e[:, :1])},
+                            {}, jnp.zeros((B,), jnp.int32))
+    with pytest.raises(ValueError, match="encoder-only"):
+        decode_step(model, tc, {"embeds": torch.from_numpy(e[:, :1])}, {},
+                    torch.zeros((B,), dtype=torch.int32))
 
 
 def test_load_rejects_foreign_trees():

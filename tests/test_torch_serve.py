@@ -602,10 +602,24 @@ class TestMatchesReference:
 
     @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-vl-72b",
                                       "hubert-xlarge"])
-    def test_serve_demo_unserved_families_raise(self, arch):
+    def test_serve_demo_moe_vlm_audio(self, arch):
+        """olmoe and qwen2-vl (embeds with 3-axis positions) are admitted
+        in the reference's batches; hubert, encoder-only, exits on both
+        sides.  Six requests of 4 new tokens keep the reference's eager
+        loop short."""
+        from repro.launch.serve import serve_demo as r_serve_demo
         from repro_torch.launch.serve import serve_demo
-        with pytest.raises(NotImplementedError, match="waits for"):
-            serve_demo(arch, device=CPU)
+        kw = dict(requests=6, new_tokens=4)
+        if arch == "hubert-xlarge":
+            with pytest.raises(SystemExit, match="encoder-only"):
+                serve_demo(arch, device=CPU, **kw)
+            with pytest.raises(SystemExit, match="encoder-only"):
+                r_serve_demo(arch, **kw)
+            return
+        got = serve_demo(arch, device=CPU, **kw)
+        want = r_serve_demo(arch, **kw)
+        assert (got["served"], got["batches"]) == (want["served"],
+                                                   want["batches"])
 
     def test_kv_envelope_identical(self):
         from repro.configs import smoke_config as r_smoke

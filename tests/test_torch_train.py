@@ -10,7 +10,9 @@ largest |reference grad|; in bfloat16 the loss agrees to 2e-2 and every
 gradient leaf has a cosine similarity of at least 0.99 with the
 reference's (the two frameworks round bf16 at different places).  AdamW fed
 the reference's own gradients agrees to 1e-6, and three ``train_step``s
-agree with the reference's ``make_train_step``.
+agree with the reference's ``make_train_step`` (llama3, and olmoe with
+its aux terms).  The moe, vlm and audio families hold their loss, aux
+metrics and gradients to the float32 tolerances, with and without remat.
 """
 
 import dataclasses
@@ -77,7 +79,10 @@ def _port_grads(tc, params):
     named = dict(model.named_parameters())
     loss, metrics = forward_train(model, tc,
                                   _torch_batch(host_batch(tc, S, B, 3)))
-    grads = torch.autograd.grad(loss, list(named.values()))
+    # the embedding table is unused when the batch brings embeds: its
+    # gradient is zero, as the reference's
+    grads = torch.autograd.grad(loss, list(named.values()),
+                                allow_unused=True, materialize_grads=True)
     return loss, metrics, export_tree(tc, dict(zip(named, grads)))
 
 
@@ -144,12 +149,42 @@ class TestForwardTrain:
         _, _, again = _port_grads(plain, params)
         _check_close(grads, again, atol=0)
 
-    def test_waiting_families_raise(self):
-        tc = configs.smoke_config("olmoe-1b-7b")
-        with pytest.raises(NotImplementedError, match="A11a"):
-            forward_train(None, tc, {})
-        with pytest.raises(NotImplementedError, match="A11a"):
-            step_fn_for(tc, "encode")
+    @pytest.mark.parametrize("remat", ["none", "full"])
+    @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen2-vl-72b",
+                                      "hubert-xlarge"])
+    def test_moe_vlm_audio_match_reference(self, arch, remat):
+        """The moe, vlm and audio families (embeds and 3-axis positions
+        from ``host_batch``): loss with the MoE aux term, the aux metrics
+        averaged over layers, and every gradient, with and without remat
+        (the MoE aux comes out of the checkpoint; its gradient flows
+        through the router probabilities)."""
+        jc, params, tc = _params(arch, "float32", remat=remat)
+        batch = {k: jnp.asarray(v)
+                 for k, v in j_host_batch(jc, S, B, 3).items()}
+        (jloss, jm), jgrads = jax.value_and_grad(
+            lambda p: jmodels.forward_train(p, jc, batch),
+            has_aux=True)(params)
+        loss, metrics, grads = _port_grads(tc, params)
+        assert set(metrics) == set(jm)
+        for key in jm:
+            np.testing.assert_allclose(float(metrics[key]), float(jm[key]),
+                                       rtol=1e-5, atol=1e-7, err_msg=key)
+        np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+        _check_grads(grads, jax.tree.map(
+            lambda g: np.asarray(g, np.float32), jgrads), "float32")
+
+    def test_encode_step_for_encoder_only(self):
+        """``step_fn_for(cfg, "encode")`` runs hubert's full forward; the
+        decoder kinds stay for the decoder families."""
+        tc = configs.smoke_config("hubert-xlarge")
+        jc, params, _ = _params("hubert-xlarge", "float32")
+        model = _port_model(tc, params)
+        bt = _torch_batch(host_batch(tc, S, B, 0))
+        logits = step_fn_for(tc, "encode")(model, bt)
+        assert logits.shape == (B, S, tc.vocab)
+        assert torch.isfinite(logits).all()
+        with pytest.raises(ValueError, match="encoder-only"):
+            step_fn_for(tc, "prefill")(model, bt)
 
 
 class TestAdamW:
@@ -200,6 +235,41 @@ def _tree_get(tree, name, cfg):
 
 
 class TestTrainStep:
+    def test_moe_three_steps_match_reference(self):
+        """olmoe at remat "full" (its own config's): three AdamW steps, the
+        aux metrics beside the loss.  Every leaf's update agrees to 1e-4
+        relative L2: element by element, a few expert weights whose
+        gradient is ~1e-8 (the size of AdamW's eps) or a few thousandths
+        of the leaf's largest take a step that the gradients' last bits
+        set, and differ from the reference's by up to ~3e-3 of the
+        largest step."""
+        kw = dict(peak_lr=1e-2, warmup_steps=2, total_steps=10)
+        jc, params, tc = _params("olmoe-1b-7b", "float32", remat="full")
+        jstep = jax.jit(j_make_train_step(jc, **kw))
+        step_fn = make_train_step(tc, **kw)
+        model = _port_model(tc, params)
+        named = dict(model.named_parameters())
+        opt, jopt = adamw_init(named), j_adamw_init(params)
+        start = dict(_leaves(jax.tree.map(np.asarray, params)))
+        for step in range(1, 4):
+            batch = j_host_batch(jc, S, B, step)
+            params, jopt, jm = jstep(
+                params, jopt, {k: jnp.asarray(v) for k, v in batch.items()},
+                jnp.int32(step))
+            m = step_fn(model, opt, _torch_batch(host_batch(tc, S, B, step)),
+                        step)
+            assert set(m) == set(jm) >= {"moe_aux_loss", "moe_dropped_frac",
+                                         "moe_frac_tokens"}
+            for key in m:
+                np.testing.assert_allclose(float(m[key]), float(jm[key]),
+                                           rtol=1e-5, atol=1e-7, err_msg=key)
+        got = dict(_leaves(export_tree(tc, named)))
+        for name, want in _leaves(params):
+            moved, ref = got.pop(name) - start[name], want - start[name]
+            rel = np.linalg.norm(moved - ref) / np.linalg.norm(ref)
+            assert rel <= 1e-4, (name, rel)
+        assert not got, sorted(got)
+
     def test_three_steps_match_reference(self):
         kw = dict(peak_lr=1e-2, warmup_steps=2, total_steps=10)
         jc, params, tc = _params("llama3-8b", "float32")
