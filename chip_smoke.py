@@ -171,6 +171,30 @@ Phases (any failure exits non-zero; nothing is caught):
    field.  ``python3 -c "import chip_smoke; chip_smoke.families_bench()"``
    runs it alone with its build.
 
+16. the dry run and the roofline (``launch.dryrun`` / ``launch.roofline``,
+   on the host CPU with fake tensors): (a) the steps phases 9, 14 and 15
+   ran at full width — zamba2-2.7b prefill 4 x 2048 and training 1 x 2048
+   (``remat="none"``), olmoe-1b-7b prefill 4 x 2048, qwen2-vl-72b (4
+   layers) prefill 2 x 2048 and hubert-xlarge encode 4 x 1500 — dry-run on
+   a one-card mesh with the card's float32 masters: predicted FLOPs, HBM
+   bytes, peak and the roofline's compute and memory seconds beside the
+   card's time and memory of that step (``step_memory``: its
+   ``max_memory_allocated`` less what else the process held), and each
+   step's ``mfu``.  The card's time is a median of warm calls: of the 7
+   training steps after the first, of hubert's 3 encodes, and for each
+   prefill of ``WARM_RUNS`` prefills of the batch after an untimed one
+   (``warm_prefill``, run by phases 9 and 15 after they read their launch
+   counts, so those counts stay the served batches' own).  It fails if a
+   one-card mesh issues a collective, if the bound exceeds the measured
+   time by more than 5 % (a wrong count), or if the predicted peak misses
+   the card's step peak by more than 20 % (a tensor left out or added);
+   (b) the reference's tiny-mesh trio (qwen3-1.7b ``train_4k``,
+   olmoe-1b-7b ``decode_32k``, mamba2-780m ``long_500k``) and the SSD
+   path's mamba2-780m ``prefill_32k`` and zamba2-2.7b ``train_4k`` on the
+   production (16, 16) mesh: per-device GiB, ``fits_hbm``, FLOPs,
+   collective bytes by op and the dominant term, each ``ok``.  Records go
+   to ``build/dryrun_torch/``.
+
 The card's ``nvidia-smi`` line comes two lines before the end, then
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -223,6 +247,42 @@ KW = dict(seed=0, train_frac=0.5, k=4, machine_memory=128.0)  # the cells
 ARCH = "zamba2-2.7b"
 SERVE_BATCHES = ((4, 2048), (3, 1000))  # (requests, prompt tokens)
 NEW_TOKENS = 32
+WARM_RUNS = 5   # phase 16's step time: the median of this many warm calls
+
+
+def tensor_bytes(*objs) -> int:
+    """Bytes of the distinct storages of the tensors in ``objs`` (modules,
+    dicts, lists and tensors, nested)."""
+    seen = {}
+
+    def walk(o):
+        if isinstance(o, torch.Tensor):
+            st = o.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+        elif isinstance(o, torch.nn.Module):
+            for t in o.parameters():
+                walk(t)
+        elif isinstance(o, dict):
+            for v in o.values():
+                walk(v)
+        elif isinstance(o, (list, tuple)):
+            for v in o:
+                walk(v)
+    for o in objs:
+        walk(o)
+    return sum(seen.values())
+
+
+def step_memory(before, args_bytes):
+    """The card's memory record of one step: ``max_memory_allocated``
+    since the reset, the allocation at the step's start, the bytes of the
+    step's own arguments (parameters, optimizer state, inputs) and the
+    step's peak, ``max_allocated - before + args``: the arguments and what
+    the step allocated, without what else the process held."""
+    peak = torch.cuda.max_memory_allocated()
+    return {"max_allocated_bytes": peak, "allocated_before_bytes": before,
+            "args_bytes": args_bytes,
+            "step_peak_bytes": peak - before + args_bytes}
 
 
 def log(*a):
@@ -918,10 +978,12 @@ def serve(model, cfg, batches, new_tokens, seed, feed=None):
         before = (sops.LAUNCHES["ssd"], fops.LAUNCHES["flash_attention"])
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         logits, cache = prefill(model, batch)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        prefill_memory = step_memory(allocated, tensor_bytes(model, batch))
         launched = (sops.LAUNCHES["ssd"] - before[0],
                     fops.LAUNCHES["flash_attention"] - before[1])
         finite = torch.isfinite(logits).all()
@@ -947,13 +1009,39 @@ def serve(model, cfg, batches, new_tokens, seed, feed=None):
                     "decode_launches": {"ssd": decode_launches[0],
                                         "flash_attention":
                                             decode_launches[1]},
-                    "finite": bool(finite), "last_tokens": tok.tolist()})
+                    "finite": bool(finite), "last_tokens": tok.tolist(),
+                    "prefill_memory": prefill_memory})
         if dropped:
             out[-1]["moe_dropped_frac"] = [float(d) for d in dropped]
         del cache, logits
     for h in hooks:
         h.remove()
     return out
+
+
+def warm_prefill(model, cfg, Bsz, S, feed=None, seed=0, runs=WARM_RUNS):
+    """``runs`` timed prefills of one ``Bsz`` x ``S`` batch after an untimed
+    one at that shape, each ending in a synchronise: the step time phase 16
+    holds the dry run's bound against (a first call at a new shape also
+    pays the allocator's growth).  Called after a phase has read its
+    launch counts."""
+    from repro_torch.runtime import make_prefill_step
+    prefill = make_prefill_step(cfg, capacity=S + NEW_TOKENS)
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (Bsz, S)),
+                                       dtype=torch.int32, device="cuda")} \
+        if feed is None else feed(rng, Bsz, S)
+    secs = []
+    for i in range(runs + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = prefill(model, batch)
+        torch.cuda.synchronize()
+        if i:
+            secs.append(time.perf_counter() - t0)
+        del out
+    return {"requests": Bsz, "prompt": S, "runs_s": secs,
+            "median_s": float(np.median(secs))}
 
 
 PREFILL_KINDS = {"ssd": ("ssd_states", "ssd_pass", "ssd_scan"),
@@ -1116,12 +1204,15 @@ def lm_kernel_timings(launches, err):
     lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True))
     # each input read once, the output written once; q.k and p.v over the
-    # causal pairs only (the kernel skips tiles above the frontier)
-    nbytes = (2 * Bsz * S * H * hd + 2 * Bsz * S * K * hd) * 2
-    nops = Bsz * H * (S * (S + 1) // 2) * 4 * hd
+    # causal pairs only (the kernel skips tiles above the frontier): the
+    # operator's FLOP rule, which the dry run counts
+    nbytes = fops.io_bytes(Bsz, S, S, H, K, hd, 2)
+    nops = fops.flops(Bsz, S, S, H, hd, True, None)
     out.append(_entry("flash_attention", launches, err, ms, plain_ms,
                       lib_ms, nbytes, nops,
-                      f"causal prefill, q/k/v ({Bsz}, {S}, {H}, {hd}) bf16"))
+                      f"causal prefill, q/k/v ({Bsz}, {S}, {H}, {hd}) bf16",
+                      shape=dict(B=Bsz, Sq=S, Skv=S, H=H, K=K, hd=hd,
+                                 causal=True, window=None)))
 
     Hs, P, G, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_groups, \
         cfg.ssm_state
@@ -1130,19 +1221,17 @@ def lm_kernel_timings(launches, err):
     ms = time_ms(lambda: sops.ssd(X, A, Bm, Cm, chunk))
     plain_ms = time_ms(lambda: sops.ref.ssd(X, A, Bm, Cm, chunk))
     # x, a, B, C read once; y (bf16) and the f32 final state written once;
-    # per 64-row sub-chunk of each head: C.B and G.x over the lower
-    # triangle, C.state and the state update in full.  The bf16 kernel's
-    # scratch (chunk states, entering states, cumsums) counts against its
-    # time, not the bound.
-    nbytes = (2 * Bsz * S * Hs * P + Bsz * S * Hs + 2 * Bsz * S * G * N) \
-        * 2 + Bsz * Hs * P * N * 4
-    # the 64-row form, fixed: the bound may not move with the kernel's tiling
-    T = 64
-    n_sub = -(-S // T)
-    nops = Bsz * Hs * n_sub * (T * (T + 1) * (N + P) + 4 * T * P * N)
+    # per 64-row sub-chunk of each head (the fixed form: the bound may not
+    # move with the kernel's tiling): C.B and G.x over the lower triangle,
+    # C.state and the state update in full, the operator's FLOP rule.  The
+    # bf16 kernel's scratch (chunk states, entering states, cumsums) counts
+    # against its time, not the bound.
+    nbytes = sops.io_bytes(Bsz, S, Hs, P, G, N, 2)
+    nops = sops.flops(Bsz, S, Hs, P, N)
     out.append(_entry("ssd", launches, err, ms, plain_ms, None, nbytes,
                       nops, f"prefill scan, x ({Bsz}, {S}, {Hs}, {P}), "
-                            f"G={G} N={N} bf16"))
+                            f"G={G} N={N} bf16",
+                      shape=dict(B=Bsz, S=S, H=Hs, P=P, G=G, N=N)))
     return out
 
 
@@ -1823,6 +1912,8 @@ class TrainSteps:
 
             def step(model, opt, batch, i):
                 before = counts()
+                self.allocated_before = torch.cuda.memory_allocated()
+                self.args_bytes = tensor_bytes(model, opt, batch)
                 if i == self.profile_at:
                     self.profile = profile_call(
                         lambda: step_fn(model, opt, batch, i))
@@ -2009,6 +2100,8 @@ def train_full(seq=2048, steps=8):
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
             "rss_trace_gb": out.get("rss_trace_gb"),
             "launches": launches, "launches_per_step": want,
+            "step_memory": step_memory(rec.allocated_before,
+                                       rec.args_bytes),
             "profile_last_step": prof}
 
 
@@ -2126,12 +2219,14 @@ def bwd_kernel_timings(launches, err):
     # q, k, v, o, dO read once and dq, dk, dv written once (bf16), lse
     # read; products: 2.5x the forward's over the causal pairs (five
     # products of the forward's size against its two)
-    nbytes = 8 * Bsz * S * H * hd * 2 + Bsz * H * S * 4
-    nops = int(2.5 * Bsz * H * (S * (S + 1) // 2) * 4 * hd)
+    nbytes = fops.io_bytes(Bsz, S, S, H, K, hd, 2, backward=True)
+    nops = fops.flops(Bsz, S, S, H, hd, True, None, backward=True)
     out.append(_entry("flash_attention_bwd", launches, err, ms, plain_ms,
                       lib_ms, nbytes, nops,
                       f"causal backward, q/k/v/o/dO ({Bsz}, {S}, {H}, {hd}) "
-                      f"bf16; library = SDPA forward+backward minus forward"))
+                      f"bf16; library = SDPA forward+backward minus forward",
+                      shape=dict(B=Bsz, Sq=S, Skv=S, H=H, K=K, hd=hd,
+                                 causal=True, window=None)))
     del q, k, v, o, do, qt, kt, vt, dot
 
     Hs, P, G, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_groups, \
@@ -2159,15 +2254,14 @@ def bwd_kernel_timings(launches, err):
     # product has two gradient products); scratch counts against the time.
     # The per-head dB, dC partials (float32, written and read once each)
     # are the largest scratch term: a second bound counts them.
-    nbytes = (3 * Bsz * S * Hs * P + 2 * Bsz * S * Hs
-              + 4 * Bsz * S * G * N) * 2
+    nbytes = sops.io_bytes(Bsz, S, Hs, P, G, N, 2, backward=True)
     partials = 2 * 2 * Bsz * S * Hs * N * 4
-    T = 64
-    nops = 2 * Bsz * Hs * -(-S // T) * (T * (T + 1) * (N + P) + 4 * T * P * N)
+    nops = sops.flops(Bsz, S, Hs, P, N, backward=True)
     out.append(_entry(
         "ssd_bwd", launches, err, ms, plain_ms, None, nbytes, nops,
         f"backward scan, x/dY ({Bsz}, {S}, {Hs}, {P}), G={G} N={N} bf16, "
         f"with the forward's entering states",
+        shape=dict(B=Bsz, S=S, H=Hs, P=P, G=G, N=N),
         ms_without_states=ms_alone,
         bound_with_partials_ms=max((nbytes + partials) / HBM_BYTES_PER_S,
                                    nops / BF16_OPS_PER_S) * 1e3))
@@ -2243,6 +2337,7 @@ def training(kernels, err, built):
     kernels += bwd
     log("phase 14: records " + json.dumps({"train": full, "remat": rem,
                                            "fault_tolerance": ft}))
+    return full
 
 
 def train_bench():
@@ -2396,6 +2491,7 @@ def olmoe_serving(rec_flash):
     launches = {"ssd": sops.LAUNCHES["ssd"],
                 "flash_attention": fops.LAUNCHES["flash_attention"]}
     check_served(records, cfg.n_layers, OLMOE)
+    records[0]["prefill_warm"] = warm_prefill(model, cfg, *SERVE_BATCHES[0])
     prof = profile_prefill(model, cfg, *SERVE_BATCHES[0], kinds=MOE_KINDS)
     prof_decode = profile_decode(model, cfg, *SERVE_BATCHES[0])
     # the combine has no atomics: one block twice at the prefill's shape
@@ -2537,6 +2633,8 @@ def vlm_serving(rec_flash, seed=1, S=256, steps=2):
     launches = {"ssd": sops.LAUNCHES["ssd"],
                 "flash_attention": fops.LAUNCHES["flash_attention"]}
     check_served(records, cfg.n_layers, QWEN_VL)
+    records[0]["prefill_warm"] = warm_prefill(model, cfg, *VLM_BATCHES[0],
+                                              feed=feed)
     del model
     torch.cuda.empty_cache()
 
@@ -2583,13 +2681,16 @@ def audio_encode(rec_flash, seed=1, S=300):
     for _ in range(3):
         for o in (sops, fops):
             o.reset_launches()
+        logits = None
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
         with rec_flash:
             t0 = time.perf_counter()
             logits = encode(model, batch)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
+        memory = step_memory(allocated, tensor_bytes(model, batch))
         launches = {"ssd": sops.LAUNCHES["ssd"],
                     "flash_attention": fops.LAUNCHES["flash_attention"]}
         if launches != {"ssd": 0, "flash_attention": cfg.n_layers}:
@@ -2602,7 +2703,7 @@ def audio_encode(rec_flash, seed=1, S=300):
            "encode_s_runs": secs,
            "frames_per_s": AUDIO_BATCH[0] * AUDIO_BATCH[1] / median,
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "launches": launches}
+           "launches": launches, "encode_memory": memory}
     del model, logits, batch
     torch.cuda.empty_cache()
     for dtype_name in ("float32", "bfloat16"):
@@ -2643,10 +2744,9 @@ def family_flash_timings(shapes, launches, err):
             qt, kt, vt, is_causal=causal, enable_gqa=H != K))
         # each input read once, the output written once; q.k and p.v over
         # the pairs the mask keeps (causal: the kernel skips tiles above
-        # the frontier)
-        pairs = S * (S + 1) // 2 if causal else S * S
-        nbytes = (2 * Bsz * S * H * hd + 2 * Bsz * S * K * hd) * 2
-        nops = Bsz * H * pairs * 4 * hd
+        # the frontier): the operator's FLOP rule
+        nbytes = fops.io_bytes(Bsz, S, S, H, K, hd, 2)
+        nops = fops.flops(Bsz, S, S, H, hd, causal, window)
         bound_ms, bound_by = _bound(nbytes, nops)
         out.append({"shape": [Bsz, S, S, H, K, hd], "causal": causal,
                     "path": launches[(Bsz, S, H, K, hd, causal)], "ms": ms,
@@ -2738,6 +2838,7 @@ def families(kernels, err):
         {"olmoe": {k: v for k, v in a.items()
                    if not k.startswith("profile")},
          "olmoe_card_vs_cpu": b, "qwen2_vl": c, "hubert": d}, default=str))
+    return {"olmoe": a, "qwen2_vl": c, "hubert": d}
 
 
 def families_bench():
@@ -2753,6 +2854,204 @@ def families_bench():
     err = dict.fromkeys(list(REPLACES), 0.0)
     families(kernels, err)
     print(json.dumps({"kernels": kernels}), flush=True)
+
+
+# ------------------------------------------------------------- phase 16
+DRYRUN_OUT = os.path.join(ROOT, "build", "dryrun_torch")
+# the reference's tiny-mesh trio and two cells of the SSD path (the
+# kernels' and the causal conv's local_map forward and backward), on the
+# production mesh
+PRODUCTION_CELLS = (("qwen3-1.7b", "train_4k"), ("olmoe-1b-7b", "decode_32k"),
+                    ("mamba2-780m", "long_500k"),
+                    ("mamba2-780m", "prefill_32k"),
+                    ("zamba2-2.7b", "train_4k"))
+PEAK_BAND = 0.20      # predicted peak within 20 % of the card's step peak
+BOUND_SLACK = 1.05    # the roofline's bound over the measured time
+WARM_HOW = f"phase %s, median of {WARM_RUNS} warm calls"
+
+
+def one_card_cells(measured):
+    """Phase 16 (a)'s cells: the steps the card ran at full width in phases
+    9, 14 and 15, each ``(label, arch, cfg, cell, seconds, how, memory)``
+    with the card's time and memory record of that step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import ShapeCell
+    zamba = get_config(ARCH)
+    serve9 = measured["serve"][0]
+    train14 = measured["train"]
+    olmoe = measured["olmoe"]["records"][0]
+    vlm = measured["qwen2_vl"]["records"][0]
+    hubert = measured["hubert"]
+    return [
+        ("zamba2 prefill", ARCH, zamba,
+         ShapeCell("prefill_4x2048", "prefill", 2048, 4),
+         serve9["prefill_warm"]["median_s"], WARM_HOW % 9,
+         serve9["prefill_memory"]),
+        ("zamba2 train", ARCH, dataclasses.replace(zamba, remat="none"),
+         ShapeCell("train_1x2048", "train", 2048, 1),
+         train14["median_step_s"], "phase 14 (d), median step",
+         train14["step_memory"]),
+        ("olmoe prefill", OLMOE, get_config(OLMOE),
+         ShapeCell("prefill_4x2048", "prefill", 2048, 4),
+         olmoe["prefill_warm"]["median_s"], WARM_HOW % "15 (a)",
+         olmoe["prefill_memory"]),
+        ("qwen2-vl prefill", QWEN_VL,
+         dataclasses.replace(get_config(QWEN_VL), n_layers=VLM_LAYERS),
+         ShapeCell("prefill_2x2048", "prefill", *VLM_BATCHES[0][::-1]),
+         vlm["prefill_warm"]["median_s"], WARM_HOW % "15 (c)",
+         vlm["prefill_memory"]),
+        ("hubert encode", HUBERT, get_config(HUBERT),
+         ShapeCell("encode_4x1500", "prefill", *AUDIO_BATCH[::-1]),
+         hubert["encode_s"], "phase 15 (d), median of 3",
+         hubert["encode_memory"]),
+    ]
+
+
+def dry_run_phase(measured):
+    """Phase 16 (see the module docstring)."""
+    import logging
+
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import HW
+    from repro_torch.launch.roofline import roofline_terms
+    logging.getLogger("torch.distributed").setLevel(logging.ERROR)
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"phase 16: card memory {total} bytes "
+        f"(launch.mesh.HW.HBM_BYTES {HW.HBM_BYTES})")
+    out = {"one_card": [], "production": []}
+    for label, arch, cfg, cell, secs, how, mem in one_card_cells(measured):
+        rec = run_cell(arch, cell, False, out_dir=DRYRUN_OUT,
+                       cfg_override=cfg, tag="card", mesh_shape=(1, 1),
+                       param_dtype=torch.float32)
+        rt = roofline_terms(rec, cfg, cell, measured_s=secs)
+        bound = max(rt["compute_s"], rt["memory_s"])
+        peak, step_peak = rec["memory"]["peak_bytes"], mem["step_peak_bytes"]
+        row = {"cell": label, "arch": arch, "batch": cell.batch,
+               "seq": cell.seq, "kind": rec["kind"],
+               "flops": rec["flops_per_device"],
+               "hbm_bytes": rec["hbm_bytes_per_device"],
+               "predicted_peak_bytes": peak,
+               "predicted_argument_bytes": rec["memory"]["argument_bytes"],
+               "compute_s": rt["compute_s"], "memory_s": rt["memory_s"],
+               "bound_s": bound, "measured_s": secs, "measured": how,
+               "bound_fraction": bound / secs,
+               "model_flops": rt["model_flops"], "mfu": rt["mfu"],
+               "card_memory": mem,
+               "peak_error": (peak - step_peak) / step_peak,
+               "collective": rec["collective"], "trace_s": rec["lower_s"]}
+        out["one_card"].append(row)
+        log(f"phase 16: {label} {cell.batch} x {cell.seq} ({rec['kind']}, "
+            f"float32 masters): predicted {row['flops']:.4e} FLOPs, "
+            f"{row['hbm_bytes']:.4e} HBM bytes, compute "
+            f"{rt['compute_s'] * 1e3:.3f} ms, memory "
+            f"{rt['memory_s'] * 1e3:.3f} ms, peak {peak / 1e9:.3f} GB; "
+            f"measured {secs:.4f} s ({how}), step peak "
+            f"{step_peak / 1e9:.3f} GB (max_memory_allocated "
+            f"{mem['max_allocated_bytes'] / 1e9:.3f} GB); bound / measured "
+            f"{row['bound_fraction']:.4f}, peak error "
+            f"{row['peak_error']:+.4f}, mfu {rt['mfu']:.4f}")
+        if rec["collective"]["total_bytes"] or rec["collective"]["counts"]:
+            raise AssertionError(f"{label}: a one-card mesh issued "
+                                 f"collectives {rec['collective']}")
+        if row["bound_fraction"] > BOUND_SLACK:
+            raise AssertionError(f"{label}: the roofline bound {bound:.4f} "
+                                 f"s exceeds the measured {secs:.4f} s: a "
+                                 f"wrong count")
+        if abs(row["peak_error"]) > PEAK_BAND:
+            raise AssertionError(
+                f"{label}: predicted peak {peak} bytes vs the card's step "
+                f"peak {step_peak}: {row['peak_error']:+.3f}")
+    t1 = time.perf_counter()
+    for arch, shape in PRODUCTION_CELLS:
+        from repro_torch.configs import get_config
+        rec = run_cell(arch, shape, False, out_dir=DRYRUN_OUT)
+        if rec["status"] != "ok":
+            raise AssertionError(f"{arch} x {shape}: {rec}")
+        rt = roofline_terms(rec, get_config(arch), shape)
+        out["production"].append({"arch": arch, "shape": shape,
+                                  "mesh": rec["mesh"], **rt,
+                                  "trace_s": rec["lower_s"]})
+        log(f"phase 16: {arch} x {shape} on {rec['mesh']}: "
+            f"{rt['peak_bytes_per_device'] / 2**30:.3f} GiB a device, fits "
+            f"{rt['fits_hbm']}; {rt['flops_per_device']:.4e} FLOPs a "
+            f"device; collective bytes by op "
+            f"{json.dumps(rt['collective_per_op'])}; compute "
+            f"{rt['compute_s'] * 1e3:.3f} ms, memory "
+            f"{rt['memory_s'] * 1e3:.3f} ms, collective "
+            f"{rt['collective_s'] * 1e3:.3f} ms: {rt['dominant']}-bound")
+    prod_s = time.perf_counter() - t1
+    log(f"phase 16: production cells {prod_s:.1f} s, phase "
+        f"{time.perf_counter() - t0:.1f} s; records " + json.dumps(out))
+    return out
+
+
+def step_times():
+    """Two end-to-end steps through the ``repro_torch`` first on
+    ``sys.path`` (its kernels built in its own checkout): olmoe-1b-7b's
+    4 x 2048 prefill as phase 15 (a) serves it (after a 1 x 256 warm-up;
+    the first call at that shape, then ``warm_prefill``) and zamba2-2.7b's
+    1 x 2048 training steps as phase 14 (d) runs them.  Prints one line,
+    ``STEP_TIMES {...}``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import repro_torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_params
+    build.build_all([sops.SOURCE, fops.SOURCE])
+    cfg = get_config(OLMOE)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    serve(model, cfg, ((1, 256),), 2, seed=99)
+    first = serve(model, cfg, SERVE_BATCHES[:1], NEW_TOKENS, seed=0)[0]
+    warm = warm_prefill(model, cfg, *SERVE_BATCHES[0])
+    del model
+    torch.cuda.empty_cache()
+    out = train(ARCH, smoke=False, seq=2048, batch=1, steps=8, monitor=True,
+                log_every=1)
+    print("STEP_TIMES " + json.dumps({
+        "tree": os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(repro_torch.__file__)))),
+        "olmoe_prefill_first_s": first["prefill_s"],
+        "olmoe_prefill_warm": warm, "zamba2_train_step_s": out["step_s"],
+        "zamba2_train_median_s": float(np.median(out["step_s"][1:]))}),
+        flush=True)
+
+
+def step_ab(parent):
+    """``step_times`` of the checkout at ``parent`` and of this one in four
+    processes, parent, this, this, parent, on one card:
+
+      git archive <parent commit> | tar -x -C build/ab_parent
+      python3 -c "import chip_smoke; chip_smoke.step_ab('build/ab_parent')"
+    """
+    parent = os.path.abspath(parent)
+    log(device_line())
+    recs = []
+    for tree in (parent, ROOT, ROOT, parent):
+        code = (f"import sys; sys.path[:0] = "
+                f"[{os.path.join(tree, 'src')!r}, {ROOT!r}]; "
+                f"import chip_smoke; chip_smoke.step_times()")
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, timeout=900, cwd=ROOT)
+        got = [x for x in r.stdout.splitlines() if x.startswith("STEP_TIMES ")]
+        if r.returncode or not got:
+            raise RuntimeError(f"step_times in {tree}: rc {r.returncode}\n"
+                               f"{r.stderr[-3000:]}")
+        recs.append(json.loads(got[-1][len("STEP_TIMES "):]))
+        rec = recs[-1]
+        log(f"{rec['tree']}: olmoe prefill 4 x 2048 first "
+            f"{rec['olmoe_prefill_first_s']:.4f} s, warm median "
+            f"{rec['olmoe_prefill_warm']['median_s']:.4f} s "
+            f"{rec['olmoe_prefill_warm']['runs_s']}; zamba2 train step "
+            f"median {rec['zamba2_train_median_s']:.4f} s "
+            f"{rec['zamba2_train_step_s']}")
+    print(json.dumps({"step_ab": recs}), flush=True)
 
 
 def main() -> int:
@@ -2908,6 +3207,7 @@ def main() -> int:
         raise AssertionError(f"serving launched {lm_launches}")
     log(f"phase 9: main-path launches {lm_launches}; max memory allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    records[0]["prefill_warm"] = warm_prefill(model, cfg, *SERVE_BATCHES[0])
     log("phase 9: records " + json.dumps(records))
     log("phase 9: profile " + json.dumps(
         profile_prefill(model, cfg, *SERVE_BATCHES[0])))
@@ -3026,11 +3326,14 @@ def main() -> int:
 
     # 14. training on the card
     t0 = time.perf_counter()
-    training(kernels, err, built)
+    train = training(kernels, err, built)
     log(f"phase 14: {time.perf_counter() - t0:.1f} s")
 
     # 15. the moe, vlm and audio families
-    families(kernels, err)
+    fam = families(kernels, err)
+
+    # 16. the dry run and the roofline against the steps the card ran
+    dry_run_phase({"serve": records, "train": train, **fam})
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,5 +11,7 @@ CUDA source), ``ops.py`` (the checked wrapper with its launch count) and
 ``ref.py`` (the plain PyTorch version, used for CPU tensors and as the
 kernel's oracle); :mod:`repro_torch.kernels.build` compiles each source with
 ``nvcc`` into ``build/repro_torch_kernels/`` and loads it with ``ctypes`` at
-its first launch.
+its first launch.  The LM kernels' launches are custom operators with
+fake implementations and FLOP rules; :mod:`repro_torch.kernels.dryrun`
+is the dry run's switch to them.
 """

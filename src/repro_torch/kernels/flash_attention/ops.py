@@ -8,6 +8,19 @@ layout.  A tensor on the CPU goes to the plain version
 the hand-written kernel (``csrc/flash_attention.cu``) or raises.
 ``LAUNCHES["flash_attention"]`` counts kernel launches and nothing else.
 
+The launches are custom operators (``torch.ops.repro_torch.flash_attention``
+and ``flash_attention_bwd``) around the ``ctypes`` calls, so that a trace
+with fake tensors can pass through them: each has a fake implementation
+(the outputs the kernel writes, with its shapes and dtypes), a FLOP rule
+for ``torch.utils.flop_counter`` (:func:`flops`, the count ``PERF.md``'s
+bounds use).  Inside ``kernels.dryrun.dry_run()`` the wrapper calls the
+operator whatever the tensors' device.  The operators have no DTensor
+sharding rule: given DTensors (a mesh), :func:`flash_attention` runs the
+kernel on each device's shard through ``local_map``, the one sharded
+route (batch and heads shard; sequence and head dim stay whole); where
+the query heads are split over a mesh axis that the KV heads do not
+divide, each shard reads the KV heads its query heads use.
+
 The CUDA source has two instances, picked here by dtype:
 
 * bfloat16 (serving): tensor-core products (``wgmma``) on bf16 operands
@@ -40,15 +53,20 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
+from torch import Tensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, dryrun
 from repro_torch.kernels.flash_attention import ref
 
 __all__ = ["LAUNCHES", "SOURCE", "reset_launches", "flash_attention",
-           "flash_attention_bwd"]
+           "flash_attention_bwd", "attended_pairs", "flops", "io_bytes"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MAX_HD = 128  # kMaxHd in csrc/flash_attention.cu
@@ -107,6 +125,38 @@ def _check(q, k, v, window):
     return B, Sq, Skv, H, K, hd
 
 
+def attended_pairs(Sq: int, Skv: int, causal: bool,
+                   window: Optional[int]) -> int:
+    """(query, key) pairs inside the mask: key j of query i when ``j <= i``
+    (causal) and ``j > i - window`` (windowed)."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i + 1, Skv) if causal else np.full(Sq, Skv)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(Sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flops(B: int, Sq: int, Skv: int, H: int, hd: int, causal: bool,
+          window: Optional[int], backward: bool = False) -> int:
+    """The kernel's FLOPs: q.k and p.v (2 * hd each) over the attended
+    pairs (it skips the tiles outside the mask); the backward's five
+    products are 2.5 times the forward's two."""
+    n = 4 * hd * B * H * attended_pairs(Sq, Skv, causal, window)
+    return int(2.5 * n) if backward else n
+
+
+def io_bytes(B: int, Sq: int, Skv: int, H: int, K: int, hd: int,
+             itemsize: int, with_lse: bool = False,
+             backward: bool = False) -> int:
+    """Bytes the kernel must move: each input read once and each output
+    written once (forward: q, k, v, out and the float32 row lse when
+    training; backward: q, k, v, o, dO, dq, dk, dv and lse)."""
+    rows_q, rows_kv = B * Sq * H * hd, B * Skv * K * hd
+    if backward:
+        return (4 * rows_q + 4 * rows_kv) * itemsize + 4 * B * H * Sq
+    return (2 * rows_q + 2 * rows_kv) * itemsize \
+        + (4 * B * H * Sq if with_lse else 0)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
@@ -114,35 +164,63 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B,Sq,H,hd); k/v: (B,Skv,K,hd), query head h reads KV head h // G;
     causal mask aligned top-left (k <= q); optional window (k > q - window).
-    All of one dtype (float32 or bfloat16), contiguous, on one device.
-    Returns (B,Sq,H,hd) in q's dtype.
+    All of one dtype (float32 or bfloat16), contiguous, on one device (or
+    DTensors on one mesh).  Returns (B,Sq,H,hd) in q's dtype.
     """
+    if isinstance(q, DTensor):
+        return _sharded(q, k, v, causal, window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal, window)
     return _forward(q, k, v, causal, window, with_lse=False)[0]
 
 
 def _forward(q, k, v, causal, window, with_lse):
-    """``(out, lse or None)``: the kernel on CUDA, the plain version on the
-    CPU (which always computes ``lse``)."""
-    B, Sq, Skv, H, K, hd = _check(q, k, v, window)
-    if q.device.type == "cpu":
+    """``(out, lse or None)``: the kernel's operator on CUDA (or in a dry
+    run), the plain version on the CPU (which always computes ``lse``)."""
+    _check(q, k, v, window)
+    if q.device.type == "cpu" and not dryrun.active():
         if with_lse:
             return ref.flash_attention_fwd(q, k, v, causal=causal,
                                            window=window)
         return ref.flash_attention(q, k, v, causal=causal,
                                    window=window), None
-    out = torch.empty_like(q)
-    lse = torch.empty((B, H, Sq), dtype=torch.float32,
-                      device=q.device) if with_lse else None
+    out, lse = torch.ops.repro_torch.flash_attention(q, k, v, causal,
+                                                     window, with_lse)
+    return out, (lse if with_lse else None)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _flash_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+              window: Optional[int], with_lse: bool) -> Tuple[Tensor, Tensor]:
+    """One launch: ``(out, lse)``, ``lse`` (B, H, Sq) float32 when
+    ``with_lse``, else (B, H, 0) and left null for the kernel."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    out, lse = _flash_fake(q, k, v, causal, window, with_lse)
     lib = build.load(SOURCE, SIGNATURES)
     build.launch(lib, f"ksp_flash_attention_{_SUFFIX[q.dtype]}", q.device,
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 None if lse is None else lse.data_ptr(),
+                 lse.data_ptr() if with_lse else None,
                  B, Sq, Skv, H, K, hd, int(causal), window or 0,
                  1.0 / hd ** 0.5)
     LAUNCHES["flash_attention"] += 1
     return out, lse
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, causal, window, with_lse):
+    B, Sq, H, _ = q.shape
+    lse = torch.empty((B, H, Sq if with_lse else 0), dtype=torch.float32,
+                      device=q.device)
+    return torch.empty_like(q), lse
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, causal, window, with_lse, *args,
+                 out_shape=None, **kwargs) -> int:
+    B, Sq, H, hd = q_shape
+    return flops(B, Sq, k_shape[1], H, hd, causal, window)
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -164,15 +242,32 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"lse must be a contiguous (B, H, Sq) float32 "
                          f"tensor on {q.device}, got {tuple(lse.shape)} "
                          f"{lse.dtype}")
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not dryrun.active():
         return ref.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
                                        window=window)
-    if q.dtype == torch.bfloat16:
+    if q.device.type == "cuda" and q.dtype == torch.bfloat16:
         build.check_tma(hd, do=do)
-    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    # row scratch: D (B, H, Sq) for the float32 kernels; lse log2(e) and D,
-    # each padded to whole 128-row tiles, for the bf16 ones
-    D = torch.empty(B * H * 2 * -(-Sq // 128) * 128, dtype=torch.float32,
+    return torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, do, lse,
+                                                     causal, window)
+
+
+def bwd_scratch_bytes(B: int, Sq: int, H: int) -> int:
+    """The backward's row scratch: D (B, H, Sq) for the float32 kernels;
+    lse log2(e) and D, each padded to whole 128-row tiles, for the bf16
+    ones (allocated for both)."""
+    return 4 * B * H * 2 * -(-Sq // 128) * 128
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor,
+                  lse: Tensor, causal: bool, window: Optional[int]
+                  ) -> Tuple[Tensor, Tensor, Tensor]:
+    """One launch: ``(dq, dk, dv)``."""
+    B, Sq, H, hd = q.shape
+    Skv, K = k.shape[1], k.shape[2]
+    dq, dk, dv = _flash_bwd_fake(q, k, v, o, do, lse, causal, window)
+    D = torch.empty(bwd_scratch_bytes(B, Sq, H) // 4, dtype=torch.float32,
                     device=q.device)
     lib = build.load(SOURCE, SIGNATURES)
     build.launch(lib, f"ksp_flash_attention_bwd_{_SUFFIX[q.dtype]}",
@@ -183,6 +278,64 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  1.0 / hd ** 0.5)
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
+
+
+@_flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, o, do, lse, causal, window):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def _flash_bwd_flops(q_shape, k_shape, *args, out_shape=None,
+                     **kwargs) -> int:
+    B, Sq, H, hd = q_shape
+    causal, window = args[-2], args[-1]
+    return flops(B, Sq, k_shape[1], H, hd, causal, window, backward=True)
+
+
+def _sharded(q, k, v, causal, window):
+    """:func:`flash_attention` of DTensors: each device runs the kernel on
+    its shard through ``local_map``.  The batch shards with q; heads shard
+    on the mesh axes where q's do.  Where k/v's heads are whole on such an
+    axis (the KV heads do not divide it), each shard slices out the KV
+    heads its query heads read (GQA: query head h reads KV head h // G)."""
+    mesh = q.device_mesh
+    H, K = q.shape[2], k.shape[2]
+    G = H // K
+    q_pl, kv_pl, split = [], [], []
+    for d, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        if pq == Shard(0):
+            q_pl.append(pq)
+            kv_pl.append(pq)
+        elif pq == Shard(2):
+            q_pl.append(pq)
+            kv_pl.append(pk if pk == Shard(2) else Replicate())
+            if pk != Shard(2):
+                split.append(d)
+        else:
+            q_pl.append(Replicate())
+            kv_pl.append(Replicate())
+    if len(split) > 1 or (split and any(p == Shard(2) for p in kv_pl)):
+        raise NotImplementedError(
+            f"query heads split over mesh axes {split} with KV heads "
+            f"placed {k.placements}")
+
+    def local(ql, kl, vl):
+        if split:
+            d = split[0]
+            h0 = mesh.get_local_rank(d) * ql.shape[2]
+            n = max(ql.shape[2] // G, 1)
+            kl = kl[:, :, h0 // G:h0 // G + n].contiguous()
+            vl = vl[:, :, h0 // G:h0 // G + n].contiguous()
+        return flash_attention(ql, kl, vl, causal=causal, window=window)
+
+    # where a shard reads a slice of whole k/v, their gradients are
+    # partial sums over that axis
+    kv_grad = [Partial() if d in split else p for d, p in enumerate(kv_pl)]
+    return local_map(local, out_placements=q_pl,
+                     in_placements=(q_pl, kv_pl, kv_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -8,6 +8,18 @@ tensor on CUDA goes to the hand-written kernel (``csrc/ssd.cu``) or raises.
 ``LAUNCHES["ssd"]`` counts calls that launched the kernel: one per
 :func:`ssd` call, whatever the number of device kernels the call issues.
 
+The launches are custom operators (``torch.ops.repro_torch.ssd`` and
+``ssd_bwd``) around the ``ctypes`` calls, so that a trace with fake tensors
+can pass through them: each has a fake implementation (the outputs and the
+saved states the kernel writes, with its shapes and dtypes), a FLOP rule
+for ``torch.utils.flop_counter`` (:func:`flops`, the count ``PERF.md``'s
+bounds use).  Inside ``kernels.dryrun.dry_run()`` the wrapper calls the
+operator whatever the tensors' device.  The operators have no DTensor
+sharding rule: given DTensors (a mesh), :func:`ssd` runs the kernel on
+each device's shard through ``local_map``, the one sharded route: the
+batch shards, and the heads where every group is whole on a device;
+sequence, head dim and state stay whole.
+
 The CUDA source has two instances, picked here by dtype:
 
 * bfloat16 (serving): three device kernels per call (chunk states, state
@@ -50,14 +62,20 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import Optional, Tuple
 
 import torch
+from torch import Tensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+from torch.utils.flop_counter import register_flop_formula
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, dryrun
 from repro_torch.kernels.ssd import ref
 
 __all__ = ["LAUNCHES", "SOURCE", "SUB_CHUNK", "CHUNK_BF16", "CHUNK_BWD",
-           "CHUNK_BWD_BF16", "reset_launches", "ssd", "ssd_bwd"]
+           "CHUNK_BWD_BF16", "reset_launches", "ssd", "ssd_bwd", "flops",
+           "io_bytes", "scratch_bytes"]
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 SUB_CHUNK = 64        # kSub in csrc/ssd.cu (float32 instance)
@@ -123,6 +141,53 @@ def _check(X, A, Bm, Cm, chunk):
     return B, S, H, P, G, N
 
 
+def flops(B: int, S: int, H: int, P: int, N: int,
+          backward: bool = False) -> int:
+    """The scan's FLOPs in its fixed 64-row form (the bound may not move
+    with the kernel's tiling): per sub-chunk of each head, C.B and G.x over
+    the lower triangle, C.state and the state update in full; the backward
+    has two gradient products for each forward product."""
+    T = 64
+    n = B * H * -(-S // T) * (T * (T + 1) * (N + P) + 4 * T * P * N)
+    return 2 * n if backward else n
+
+
+def io_bytes(B: int, S: int, H: int, P: int, G: int, N: int, itemsize: int,
+             backward: bool = False) -> int:
+    """Bytes the kernel must move, each input read once and each output
+    written once: x, a, B, C in, y (and the float32 final state) out; the
+    backward reads x, a, B, C, dY and writes dx, da, dB, dC.  Scratch
+    counts against the kernel's time, not here."""
+    if backward:
+        return (3 * B * S * H * P + 2 * B * S * H + 4 * B * S * G * N) \
+            * itemsize
+    return (2 * B * S * H * P + B * S * H + 2 * B * S * G * N) * itemsize \
+        + B * H * P * N * 4
+
+
+def scratch_bytes(B: int, S: int, H: int, P: int, N: int, dtype,
+                  backward: bool = False, have_states: bool = True) -> int:
+    """Device scratch a call allocates and frees inside its launch (the
+    saved entering states and cumsums are outputs, not scratch)."""
+    if dtype == torch.bfloat16:
+        nc = -(-S // CHUNK_BF16)
+        if not backward:
+            return 4 * B * nc * H * P * N                    # chunk states
+        own = 4 * B * nc * H * P * N
+        ds = 2 * B * nc * H * 2 * P * N
+        wpart = 4 * B * H * nc * -(-(P * N) // 256)
+        rows = 4 * 3 * B * H * nc * CHUNK_BWD_BF16
+        dbh = 2 * 4 * B * S * H * N
+        made = 0 if have_states else (2 * B * nc * H * 2 * P * N
+                                      + 4 * B * H * nc * CHUNK_BWD_BF16
+                                      + 4 * B * H * P * N)
+        return own + ds + wpart + rows + dbh + made
+    if not backward:
+        return 0
+    nc = -(-S // CHUNK_BWD)
+    return 4 * (2 * B * nc * H * P * N + B * H * nc + 2 * B * S * H * N)
+
+
 def ssd(X: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
         Cm: torch.Tensor, chunk: int):
     """Chunked SSD scan in the model layout.
@@ -132,36 +197,86 @@ def ssd(X: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     dtype (float32 or bfloat16), contiguous, on one device.
     Returns ``(Y (B,S,H,P) in X's dtype, final_state (B,H,P,N) float32)``.
     """
+    if isinstance(X, DTensor):
+        return _sharded(X, A, Bm, Cm, chunk)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (X, A, Bm, Cm)):
         return _SSD.apply(X, A, Bm, Cm, chunk)
     return _forward(X, A, Bm, Cm, chunk)[:2]
 
 
+def _sharded(X, A, Bm, Cm, chunk):
+    """:func:`ssd` of DTensors on each device's shard: the batch where X's
+    batch is split, the heads (with their groups) where X's heads are split
+    and the mesh axis divides the groups; everything else whole."""
+    mesh = X.device_mesh
+    G = Bm.shape[2]
+    pl, final_pl = [], []
+    for p, m in zip(X.placements, mesh.shape):
+        if p == Shard(0):
+            pl.append(p)
+            final_pl.append(p)
+        elif p == Shard(2) and G % m == 0:
+            pl.append(p)
+            final_pl.append(Shard(1))
+        else:
+            pl.append(Replicate())
+            final_pl.append(Replicate())
+    return local_map(lambda *a: ssd(*a, chunk),
+                     out_placements=(pl, final_pl),
+                     in_placements=(pl, pl, pl, pl), device_mesh=mesh,
+                     redistribute_inputs=True)(X, A, Bm, Cm)
+
+
 def _forward(X, A, Bm, Cm, chunk):
     """``(y, final, states)``: ``states`` is the bf16 kernel's ``(s_in,
     cum)`` (what :func:`ssd_bwd` can reuse), None otherwise."""
-    B, S, H, P, G, N = _check(X, A, Bm, Cm, chunk)
-    if X.device.type == "cpu":
+    _check(X, A, Bm, Cm, chunk)
+    if X.device.type == "cpu" and not dryrun.active():
         return (*ref.ssd(X, A, Bm, Cm, chunk), None)
-    y = torch.empty_like(X)
-    final = torch.empty((B, H, P, N), dtype=torch.float32, device=X.device)
+    y, final, s_in, cum = torch.ops.repro_torch.ssd(X, A, Bm, Cm)
+    return y, final, (s_in, cum) if X.dtype == torch.bfloat16 else None
+
+
+@torch.library.custom_op("repro_torch::ssd", mutates_args=(),
+                         device_types="cuda")
+def _ssd_op(X: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor
+            ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """One launch: ``(y, final, s_in, cum)``; the bf16 kernel's entering
+    states and cumsums, empty (no chunks) for the float32 kernel."""
+    B, S, H, P = X.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    y, final, s_in, cum = _ssd_fake(X, A, Bm, Cm)
     lib = build.load(SOURCE, SIGNATURES)
     ptrs = [X.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             y.data_ptr(), final.data_ptr()]
     if X.dtype == torch.bfloat16:
-        nc = -(-S // CHUNK_BF16)
-        states = torch.empty((B, nc, H, P, N), dtype=torch.float32,
-                             device=X.device)
-        s_in = torch.empty((B, nc, H, 2, P, N), dtype=torch.bfloat16,
-                           device=X.device)
-        cum = torch.empty((B, H, nc, CHUNK_BF16), dtype=torch.float32,
-                          device=X.device)
+        states = torch.empty((B, s_in.shape[1], H, P, N),
+                             dtype=torch.float32, device=X.device)
         ptrs += [states.data_ptr(), s_in.data_ptr(), cum.data_ptr()]
     build.launch(lib, f"ksp_ssd_{_SUFFIX[X.dtype]}", X.device, *ptrs,
                  B, S, H, P, G, N)
     LAUNCHES["ssd"] += 1
-    return y, final, (s_in, cum) if X.dtype == torch.bfloat16 else None
+    return y, final, s_in, cum
+
+
+@_ssd_op.register_fake
+def _ssd_fake(X, A, Bm, Cm):
+    B, S, H, P = X.shape
+    N = Bm.shape[3]
+    nc = -(-S // CHUNK_BF16) if X.dtype == torch.bfloat16 else 0
+    f32 = dict(dtype=torch.float32, device=X.device)
+    return (torch.empty_like(X), torch.empty((B, H, P, N), **f32),
+            torch.empty((B, nc, H, 2, P, N), dtype=torch.bfloat16,
+                        device=X.device),
+            torch.empty((B, H, nc, CHUNK_BF16), **f32))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd)
+def _ssd_flops(x_shape, a_shape, b_shape, c_shape, *args, out_shape=None,
+               **kwargs) -> int:
+    B, S, H, P = x_shape
+    return flops(B, S, H, P, b_shape[3])
 
 
 def ssd_bwd(X: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
@@ -184,11 +299,26 @@ def ssd_bwd(X: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
             or dfinal.device != X.device or not dfinal.is_contiguous()):
         raise ValueError(f"dfinal must be a contiguous (B, H, P, N) float32 "
                          f"tensor on {X.device}")
-    if X.device.type == "cpu":
+    if X.device.type == "cpu" and not dryrun.active():
         return ref.ssd_bwd(X, A, Bm, Cm, chunk, dY, dfinal)
-    dX, dA, dBm, dCm = (torch.empty_like(t) for t in (X, A, Bm, Cm))
-    if X.dtype == torch.bfloat16:
+    s_in, cum = states if states is not None else (None, None)
+    if X.device.type == "cuda" and X.dtype == torch.bfloat16:
         build.check_tma(P, dY=dY)
+    return torch.ops.repro_torch.ssd_bwd(X, A, Bm, Cm, dY, dfinal, s_in, cum)
+
+
+@torch.library.custom_op("repro_torch::ssd_bwd", mutates_args=(),
+                         device_types="cuda")
+def _ssd_bwd_op(X: Tensor, A: Tensor, Bm: Tensor, Cm: Tensor, dY: Tensor,
+                dfinal: Optional[Tensor], s_in: Optional[Tensor],
+                cum: Optional[Tensor]
+                ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """One launch: ``(dX, dA, dBm, dCm)``."""
+    B, S, H, P = X.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    dX, dA, dBm, dCm = _ssd_bwd_fake(X, A, Bm, Cm, dY, dfinal, s_in, cum)
+    if X.dtype == torch.bfloat16:
+        states = None if s_in is None else (s_in, cum)
         _bwd_bf16(X, A, Bm, Cm, dY, dfinal, states, dX, dA, dBm, dCm)
         LAUNCHES["ssd_bwd"] += 1
         return dX, dA, dBm, dCm
@@ -208,6 +338,18 @@ def ssd_bwd(X: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
                  B, S, H, P, G, N)
     LAUNCHES["ssd_bwd"] += 1
     return dX, dA, dBm, dCm
+
+
+@_ssd_bwd_op.register_fake
+def _ssd_bwd_fake(X, A, Bm, Cm, dY, dfinal, s_in, cum):
+    return tuple(torch.empty_like(t) for t in (X, A, Bm, Cm))
+
+
+@register_flop_formula(torch.ops.repro_torch.ssd_bwd)
+def _ssd_bwd_flops(x_shape, a_shape, b_shape, *args, out_shape=None,
+                   **kwargs) -> int:
+    B, S, H, P = x_shape
+    return flops(B, S, H, P, b_shape[3], backward=True)
 
 
 def _bwd_bf16(X, A, Bm, Cm, dY, dfinal, states, dX, dA, dBm, dCm):

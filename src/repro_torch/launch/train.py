@@ -10,8 +10,9 @@ preemption (``--kill-at-step``), the straggler count and the KS+ memory
 monitor (``sched.monitor.MemoryMonitor``).  As in the reference,
 ``remat`` is "none".  The reference's local mesh, partitioning rules and
 sharded parameters (``make_local_mesh``, ``default_rules``,
-``tree_shardings``) have no counterpart here: the port trains on one card,
-and sharding comes with ROADMAP A11d.
+``tree_shardings``) are not wired in yet: the loop trains on one card
+(the pieces exist in ``launch.mesh`` / ``launch.partitioning``; ROADMAP
+lists the wiring with the last module slice).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --steps 50
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b --full --seq 2048 --batch 1

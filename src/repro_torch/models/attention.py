@@ -9,6 +9,11 @@ Single-token decode is plain PyTorch, as in the reference, with the same
 finite ``-1e30`` mask.  The reference's arrays are immutable; here
 :func:`append_kv` and :func:`update_positions` write into the cache in
 place, so a decode step moves one token's K/V instead of copying the cache.
+On DTensors (a mesh) each device works on its own shard (``local_map``):
+its batch rows, its KV heads and, for a sequence-sharded cache
+(flash-decoding style), the slots it holds; decode attention over such a
+cache combines the devices' partial softmaxes (an all-reduce of the row
+maximum, then of the rescaled sums).
 """
 
 from __future__ import annotations
@@ -16,6 +21,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.launch.partitioning import shard_index
 
 __all__ = ["decode_gqa_attention", "append_kv", "update_positions"]
 
@@ -31,17 +40,11 @@ def decode_gqa_attention(q: torch.Tensor, cache_k: torch.Tensor,
     q (B,1,H,hd); cache_k/v (B,cap,K,hd); kv_positions (B,cap), -1 for an
     empty slot; pos (B,) the current position.  Returns (B,1,H,hd).
     """
+    if isinstance(cache_k, DTensor):
+        return _sharded_decode(q, cache_k, cache_v, kv_positions, pos,
+                               window)
     B, _, H, hd = q.shape
-    K = cache_k.shape[2]
-    G = H // K
-    # scaled in q's dtype, the scale rounded to it first, as the reference
-    scale = torch.full((), 1.0 / (hd ** 0.5), dtype=q.dtype, device=q.device)
-    qg = (q * scale).reshape(B, K, G, hd)
-    s = torch.einsum("bkgh,bskh->bkgs", qg.float(), cache_k.float())
-    mask = (kv_positions >= 0) & (kv_positions <= pos[:, None])
-    if window is not None:
-        mask = mask & (kv_positions > pos[:, None] - window)
-    s = torch.where(mask[:, None, None, :], s, _NEG_INF)
+    s = _scores(q, cache_k, kv_positions, pos, window)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m)
     p = p / torch.sum(p, dim=-1, keepdim=True)
@@ -49,19 +52,132 @@ def decode_gqa_attention(q: torch.Tensor, cache_k: torch.Tensor,
     return out.reshape(B, 1, H, hd)
 
 
+def _scores(q, cache_k, kv_positions, pos, window):
+    """Masked float32 scores (B, K, G, cap) of one query token."""
+    B, _, H, hd = q.shape
+    K = cache_k.shape[2]
+    # scaled in q's dtype, the scale rounded to it first, as the reference
+    scale = torch.full((), 1.0 / (hd ** 0.5), dtype=q.dtype, device=q.device)
+    qg = (q * scale).reshape(B, K, H // K, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg.float(), cache_k.float())
+    mask = (kv_positions >= 0) & (kv_positions <= pos[:, None])
+    if window is not None:
+        mask = mask & (kv_positions > pos[:, None] - window)
+    return torch.where(mask[:, None, None, :], s, _NEG_INF)
+
+
+def _sharded_decode(q, cache_k, cache_v, kv_positions, pos, window):
+    """:func:`decode_gqa_attention` of DTensors, each device on its batch
+    rows and KV heads (q follows the cache's head split).  Over a
+    sequence-sharded cache each device attends to its slots and the
+    partial softmaxes combine: the row maximum all-reduced by max, the
+    rescaled value sums and denominators by sum."""
+    mesh = cache_k.device_mesh
+    cpl = tuple(cache_k.placements)
+    seq_dims = [i for i, p in enumerate(cpl) if p == Shard(1)]
+    q_pl = tuple(p if p in (Shard(0), Shard(2)) else Replicate()
+                 for p in cpl)
+    row_pl = tuple(p if p == Shard(0) else Replicate() for p in cpl)
+    kvpos_pl = tuple(p if p in (Shard(0), Shard(1)) else Replicate()
+                     for p in cpl)
+    args = (q, cache_k, cache_v, kv_positions, pos)
+    in_pl = (q_pl, cpl, cpl, kvpos_pl, row_pl)
+    if not seq_dims:
+        return local_map(
+            lambda *a: decode_gqa_attention(*a, window=window),
+            out_placements=list(q_pl), in_placements=in_pl, device_mesh=mesh,
+            redistribute_inputs=True)(*args)
+    # (B, K, G, ...) layouts: heads at dim 1
+    s_pl = tuple(Shard(1) if p == Shard(2) else
+                 Shard(3) if p == Shard(1) else p for p in cpl)
+    red_pl = [Shard(1) if p == Shard(2) else p for p in cpl]
+    m_pl = tuple(Partial("max") if i in seq_dims else p
+                 for i, p in enumerate(red_pl))
+    sum_pl = tuple(Partial() if i in seq_dims else p
+                   for i, p in enumerate(red_pl))
+
+    def scores(ql, kl, kvl, pl):
+        s = _scores(ql, kl, kvl, pl, window)
+        return s, torch.amax(s, dim=-1, keepdim=True)
+
+    s, m = local_map(scores, out_placements=(s_pl, m_pl),
+                     in_placements=(q_pl, cpl, kvpos_pl, row_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, cache_k, kv_positions, pos)
+    whole = tuple(Replicate() if i in seq_dims else p
+                  for i, p in enumerate(red_pl))
+    m = m.redistribute(mesh, whole)
+
+    def partial_sums(sl, ml, vl):
+        p = torch.exp(sl - ml)
+        o = torch.einsum("bkgs,bskh->bkgh", p, vl.float())
+        return o, torch.sum(p, dim=-1, keepdim=True)
+
+    o, den = local_map(partial_sums, out_placements=(sum_pl, sum_pl),
+                       in_placements=(s_pl, whole, cpl),
+                       device_mesh=mesh, redistribute_inputs=True)(
+        s, m, cache_v)
+    out = o.redistribute(mesh, whole) / den.redistribute(mesh, whole)
+    B, _, H, hd = q.shape
+    return out.to(q.dtype).reshape(B, 1, H, hd)
+
+
 def append_kv(cache_k: torch.Tensor, cache_v: torch.Tensor,
               k_new: torch.Tensor, v_new: torch.Tensor,
               pos: torch.Tensor) -> None:
     """Write one token's K/V at ``pos % capacity`` (ring), in place."""
-    slot = (pos % cache_k.shape[1]).long()
-    b_idx = torch.arange(cache_k.shape[0], device=cache_k.device)
-    cache_k[b_idx, slot] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[b_idx, slot] = v_new[:, 0].to(cache_v.dtype)
+    if isinstance(cache_k, DTensor):
+        return _sharded_write(cache_k, (cache_k, cache_v), (k_new, v_new),
+                              pos)
+    _write(cache_k.shape[1], 0, (cache_k, cache_v),
+           tuple(t[:, 0] for t in (k_new, v_new)), pos)
 
 
 def update_positions(positions: torch.Tensor, pos: torch.Tensor) -> None:
     """Record the appended token's absolute position (once per step), in
     place."""
-    slot = (pos % positions.shape[1]).long()
-    b_idx = torch.arange(positions.shape[0], device=positions.device)
-    positions[b_idx, slot] = pos.to(positions.dtype)
+    if isinstance(positions, DTensor):
+        return _sharded_write(positions, (positions,), (pos[:, None],), pos)
+    _write(positions.shape[1], 0, (positions,), (pos,), pos)
+
+
+def _write(cap: int, offset: int, caches, news, pos) -> None:
+    """``cache[b, pos[b] % cap - offset] = new[b]`` for each cache, where
+    that slot lies in this cache's ``offset .. offset + len`` (all of them
+    when ``offset`` is 0 and the cache is whole)."""
+    slot = (pos % cap).long() - offset
+    n = caches[0].shape[1]
+    b_idx = torch.arange(caches[0].shape[0], device=caches[0].device)
+    if offset == 0 and n == cap:
+        for c, t in zip(caches, news):
+            c[b_idx, slot] = t.to(c.dtype)
+        return
+    mine = (slot >= 0) & (slot < n)
+    slot = torch.clamp(slot, 0, n - 1)
+    for c, t in zip(caches, news):
+        keep = mine.reshape((-1,) + (1,) * (t.dim() - 1))
+        c[b_idx, slot] = torch.where(keep, t.to(c.dtype), c[b_idx, slot])
+
+
+def _sharded_write(like: DTensor, caches, news, pos) -> None:
+    """:func:`_write` on each device's shard of DTensor caches laid out as
+    ``like``: (B, cap, ...) sharded by batch, heads and (flash-decoding)
+    the sequence."""
+    mesh = like.device_mesh
+    cap = like.shape[1]
+    seq_dims = [i for i, p in enumerate(like.placements) if p == Shard(1)]
+    new_pl = [Replicate() if p == Shard(1) else p for p in like.placements]
+    pos_pl = [p if p == Shard(0) else Replicate() for p in like.placements]
+    n = len(caches)
+
+    def local(*ts):
+        cs, ns, p = ts[:n], ts[n:2 * n], ts[-1]
+        _write(cap, shard_index(mesh, seq_dims) * cs[0].shape[1], cs,
+               tuple(t[:, 0] if t.dim() == c.dim() else t
+                     for c, t in zip(cs, ns)), p)
+
+    local_map(local, out_placements=None,
+              in_placements=(tuple(like.placements),) * n
+              + (tuple(new_pl),) * n + (tuple(pos_pl),),
+              device_mesh=mesh, redistribute_inputs=True)(*caches, *news,
+                                                          pos)

@@ -22,8 +22,10 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels.flash_attention import ops as attn_ops
+from repro_torch.launch.partitioning import gathered, logical_constraint
 from repro_torch.models.attention import append_kv, decode_gqa_attention
 from repro_torch.models.layers import (apply_mrope, apply_rope, rmsnorm,
                                       swiglu)
@@ -33,7 +35,8 @@ from repro_torch.models.params import ParamDef, ParamModule
 
 __all__ = [
     "CONV_KW", "attn_param_defs", "mlp_param_defs", "moe_param_defs",
-    "mamba2_param_defs", "moe_block_defs",
+    "mamba2_param_defs", "dense_block_defs", "moe_block_defs",
+    "mamba2_block_defs",
     "DenseBlock", "MoEBlock", "Mamba2Block",
     "apply_attn", "apply_attn_decode", "apply_dense_block",
     "apply_dense_block_decode", "apply_moe_block", "apply_moe_block_decode",
@@ -52,15 +55,16 @@ def attn_param_defs(cfg) -> Dict[str, ParamDef]:
     D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
     p = {
-        "ln": ParamDef((D,), init="ones"),
-        "wq": ParamDef((D, H * hd)),
-        "wk": ParamDef((D, K * hd)),
-        "wv": ParamDef((D, K * hd)),
-        "wo": ParamDef((H * hd, D), init_scale=out_scale),
+        "ln": ParamDef((D,), (None,), init="ones"),
+        "wq": ParamDef((D, H * hd), ("embed_fsdp", "heads")),
+        "wk": ParamDef((D, K * hd), ("embed_fsdp", "heads")),
+        "wv": ParamDef((D, K * hd), ("embed_fsdp", "heads")),
+        "wo": ParamDef((H * hd, D), ("heads", "embed_fsdp"),
+                       init_scale=out_scale),
     }
     if cfg.qk_norm:
-        p["q_norm"] = ParamDef((hd,), init="ones")
-        p["k_norm"] = ParamDef((hd,), init="ones")
+        p["q_norm"] = ParamDef((hd,), (None,), init="ones")
+        p["k_norm"] = ParamDef((hd,), (None,), init="ones")
     return p
 
 
@@ -68,10 +72,11 @@ def mlp_param_defs(cfg) -> Dict[str, ParamDef]:
     D, F = cfg.d_model, cfg.d_ff
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
     return {
-        "ln": ParamDef((D,), init="ones"),
-        "w_gate": ParamDef((D, F)),
-        "w_up": ParamDef((D, F)),
-        "w_down": ParamDef((F, D), init_scale=out_scale),
+        "ln": ParamDef((D,), (None,), init="ones"),
+        "w_gate": ParamDef((D, F), ("embed_fsdp", "ff")),
+        "w_up": ParamDef((D, F), ("embed_fsdp", "ff")),
+        "w_down": ParamDef((F, D), ("ff", "embed_fsdp"),
+                           init_scale=out_scale),
     }
 
 
@@ -79,11 +84,12 @@ def moe_param_defs(cfg) -> Dict[str, ParamDef]:
     D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     out_scale = 0.02 / math.sqrt(2 * cfg.n_layers)
     return {
-        "ln": ParamDef((D,), init="ones"),
-        "router": ParamDef((D, E)),
-        "w_gate": ParamDef((E, D, F)),
-        "w_up": ParamDef((E, D, F)),
-        "w_down": ParamDef((E, F, D), init_scale=out_scale),
+        "ln": ParamDef((D,), (None,), init="ones"),
+        "router": ParamDef((D, E), ("embed_fsdp", None)),
+        "w_gate": ParamDef((E, D, F), ("expert", "embed_fsdp", None)),
+        "w_up": ParamDef((E, D, F), ("expert", "embed_fsdp", None)),
+        "w_down": ParamDef((E, F, D), ("expert", None, "embed_fsdp"),
+                           init_scale=out_scale),
     }
 
 
@@ -103,20 +109,30 @@ def mamba2_param_defs(cfg) -> Dict[str, ParamDef]:
         return dt + torch.log(-torch.expm1(-dt))  # inverse softplus
 
     return {
-        "ln": ParamDef((D,), init="ones"),
-        "in_proj": ParamDef((D, zdim)),
-        "conv_w": ParamDef((conv_dim, CONV_KW), init_scale=0.1),
-        "conv_b": ParamDef((conv_dim,), init="zeros"),
-        "dt_bias": ParamDef((H,), custom_init=dt_bias_init),
-        "A_log": ParamDef((H,), custom_init=a_log_init),
-        "D": ParamDef((H,), init="ones"),
-        "norm_scale": ParamDef((din,), init="ones"),
-        "out_proj": ParamDef((din, D), init_scale=out_scale),
+        "ln": ParamDef((D,), (None,), init="ones"),
+        "in_proj": ParamDef((D, zdim), ("embed_fsdp", "ssm_inner")),
+        "conv_w": ParamDef((conv_dim, CONV_KW), ("ssm_inner", None),
+                           init_scale=0.1),
+        "conv_b": ParamDef((conv_dim,), ("ssm_inner",), init="zeros"),
+        "dt_bias": ParamDef((H,), (None,), custom_init=dt_bias_init),
+        "A_log": ParamDef((H,), (None,), custom_init=a_log_init),
+        "D": ParamDef((H,), (None,), init="ones"),
+        "norm_scale": ParamDef((din,), ("ssm_inner",), init="ones"),
+        "out_proj": ParamDef((din, D), ("ssm_inner", "embed_fsdp"),
+                             init_scale=out_scale),
     }
+
+
+def dense_block_defs(cfg) -> Dict[str, Dict[str, ParamDef]]:
+    return {"attn": attn_param_defs(cfg), "mlp": mlp_param_defs(cfg)}
 
 
 def moe_block_defs(cfg) -> Dict[str, Dict[str, ParamDef]]:
     return {"attn": attn_param_defs(cfg), "moe": moe_param_defs(cfg)}
+
+
+def mamba2_block_defs(cfg) -> Dict[str, Dict[str, ParamDef]]:
+    return {"mamba": mamba2_param_defs(cfg)}
 
 
 # ---------------------------------------------------------------------------
@@ -124,13 +140,27 @@ def moe_block_defs(cfg) -> Dict[str, Dict[str, ParamDef]]:
 # ---------------------------------------------------------------------------
 
 
+def _split_heads(x, n: int):
+    """(B, S, n·hd) → (B, S, n, hd).  A DTensor whose last dimension is
+    split over a mesh axis that ``n`` heads do not divide is first gathered
+    on that axis (whole heads per device)."""
+    if isinstance(x, DTensor):
+        pl = [Replicate() if p == Shard(2) and n % m else p
+              for p, m in zip(x.placements, x.device_mesh.shape)]
+        if pl != list(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+    return x.reshape(x.shape[0], x.shape[1], n, x.shape[2] // n)
+
+
 def _project_qkv(p, cfg, h):
-    B, S, _ = h.shape
-    H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    H, K = cfg.n_heads, cfg.n_kv_heads
     dtype = h.dtype
-    q = (h @ p.wq.to(dtype)).reshape(B, S, H, hd)
-    k = (h @ p.wk.to(dtype)).reshape(B, S, K, hd)
-    v = (h @ p.wv.to(dtype)).reshape(B, S, K, hd)
+    q = _split_heads(h @ gathered(p.wq, dtype), H)
+    k = _split_heads(h @ gathered(p.wk, dtype), K)
+    v = _split_heads(h @ gathered(p.wv, dtype), K)
+    q = logical_constraint(q, "batch", None, "q_heads", None)
+    k = logical_constraint(k, "batch", None, "kv_heads", None)
+    v = logical_constraint(v, "batch", None, "kv_heads", None)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm, cfg.norm_eps)
         k = rmsnorm(k, p.k_norm, cfg.norm_eps)
@@ -156,8 +186,8 @@ def apply_attn(p, cfg, h: torch.Tensor, positions: torch.Tensor, *,
     k = _rope(cfg, k, positions)
     out = attn_ops.flash_attention(q, k, v, causal=cfg.causal, window=window)
     B, S = out.shape[:2]
-    out = out.reshape(B, S, cfg.n_heads * cfg.hd) @ p.wo.to(h.dtype)
-    return resid + out, ((k, v) if return_kv else None)
+    out = out.reshape(B, S, cfg.n_heads * cfg.hd) @ gathered(p.wo, h.dtype)
+    return _residual(resid + out), ((k, v) if return_kv else None)
 
 
 def apply_attn_decode(p, cfg, h: torch.Tensor, pos: torch.Tensor,
@@ -179,12 +209,19 @@ def apply_attn_decode(p, cfg, h: torch.Tensor, pos: torch.Tensor,
     out = decode_gqa_attention(q, cache_k, cache_v, kv_positions, pos,
                                window=window)
     out = out.reshape(h.shape[0], 1, cfg.n_heads * cfg.hd)
-    return resid + out @ p.wo.to(h.dtype)
+    return _residual(resid + out @ gathered(p.wo, h.dtype))
+
+
+def _residual(h):
+    """The residual stream after a sublayer: batch-sharded, whole over
+    ``model`` (a row-parallel product leaves partial sums, which are
+    reduced here rather than carried into the next norm and products)."""
+    return logical_constraint(h, "batch", None, None)
 
 
 def _mlp(p, cfg, h):
-    return h + swiglu(rmsnorm(h, p.ln, cfg.norm_eps), p.w_gate, p.w_up,
-                      p.w_down)
+    return _residual(h + swiglu(rmsnorm(h, p.ln, cfg.norm_eps), p.w_gate,
+                                p.w_up, p.w_down))
 
 
 def apply_dense_block(p, cfg, h, positions, window=None, return_kv=False):
@@ -206,7 +243,7 @@ def _moe(p, cfg, h):
     out, aux = fn(rmsnorm(h, p.ln, cfg.norm_eps), p.router, p.w_gate,
                   p.w_up, p.w_down, topk=cfg.topk,
                   capacity_factor=cfg.capacity_factor)
-    return h + out, aux
+    return _residual(h + out), aux
 
 
 def apply_moe_block(p, cfg, h, positions, window=None, return_kv=False):
@@ -228,7 +265,7 @@ def apply_mamba2_block(p, cfg, h):
     """Prefill Mamba2 block.  Returns ``(h, final_ssm_state, conv_tail)``."""
     out, final_state, conv_tail = mamba2_mixer(
         p.mamba, cfg, rmsnorm(h, p.mamba.ln, cfg.norm_eps))
-    return h + out, final_state, conv_tail
+    return _residual(h + out), final_state, conv_tail
 
 
 def apply_mamba2_block_decode(p, cfg, h, conv_state, ssm_state):
@@ -236,7 +273,7 @@ def apply_mamba2_block_decode(p, cfg, h, conv_state, ssm_state):
     out, new_conv, new_ssm = mamba2_decode(
         p.mamba, cfg, rmsnorm(h, p.mamba.ln, cfg.norm_eps), conv_state,
         ssm_state)
-    return h + out, new_conv, new_ssm
+    return _residual(h + out), new_conv, new_ssm
 
 
 # ---------------------------------------------------------------------------
@@ -250,8 +287,8 @@ class DenseBlock(nn.Module):
     def __init__(self, cfg, generator, device):
         super().__init__()
         self.cfg = cfg
-        self.attn = ParamModule(attn_param_defs(cfg), generator, device)
-        self.mlp = ParamModule(mlp_param_defs(cfg), generator, device)
+        for name, defs in dense_block_defs(cfg).items():
+            setattr(self, name, ParamModule(defs, generator, device))
 
     def forward(self, h, positions, window=None, return_kv=False):
         return apply_dense_block(self, self.cfg, h, positions, window,
@@ -286,7 +323,8 @@ class Mamba2Block(nn.Module):
     def __init__(self, cfg, generator, device):
         super().__init__()
         self.cfg = cfg
-        self.mamba = ParamModule(mamba2_param_defs(cfg), generator, device)
+        for name, defs in mamba2_block_defs(cfg).items():
+            setattr(self, name, ParamModule(defs, generator, device))
 
     def forward(self, h):
         return apply_mamba2_block(self, self.cfg, h)

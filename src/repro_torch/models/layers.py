@@ -12,6 +12,10 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.launch.partitioning import gathered, shard_index
 
 __all__ = ["rmsnorm", "swiglu", "rope_frequencies", "apply_rope",
            "apply_mrope", "embed_lookup"]
@@ -30,9 +34,9 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP: down(silu(x @ gate) * (x @ up))."""
     dtype = x.dtype
-    g = x @ w_gate.to(dtype)
-    u = x @ w_up.to(dtype)
-    return (F.silu(g) * u) @ w_down.to(dtype)
+    g = x @ gathered(w_gate, dtype)
+    u = x @ gathered(w_up, dtype)
+    return (F.silu(g) * u) @ gathered(w_down, dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float,
@@ -69,10 +73,10 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     if sum(sections) != hd // 2:
         raise ValueError(f"M-RoPE sections {sections} must sum to {hd // 2}")
     inv = rope_frequencies(hd, theta, x.device)
-    # the section (0, 1 or 2) of each rotary dimension
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.as_tensor(sections, device=x.device))
+    # the section (0, 1 or 2) of each rotary dimension (made on the host:
+    # its length is known without reading a tensor)
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=x.device)
     pos = positions3.float()[..., sec_id]                  # (B, S, hd/2)
     ang = pos * inv
     cos = torch.cos(ang)[:, :, None, :]
@@ -82,5 +86,40 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
-    """Embedding gather with a cast to the compute dtype."""
+    """Embedding gather with a cast to the compute dtype; on a DTensor
+    table, vocab-parallel (:func:`_sharded_lookup`)."""
+    if isinstance(table, DTensor):
+        return _sharded_lookup(gathered(table, table.dtype), tokens).to(dtype)
     return table[tokens.long()].to(dtype)
+
+
+def _sharded_lookup(table, tokens):
+    """Each device gathers the rows of its vocabulary slice (zeros for
+    the other tokens) for its batch rows; the partial sums reduce over the
+    mesh axes that split the vocabulary (Megatron's vocab-parallel
+    embedding).  The table's gradient is a partial sum over the batch
+    axes, each holding the rows its own tokens read."""
+    mesh = table.device_mesh
+    n = len(table.placements)
+    vocab = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    tok_pl = [p if isinstance(tokens, DTensor) and p == Shard(0)
+              else Replicate()
+              for p in (tokens.placements if isinstance(tokens, DTensor)
+                        else [Replicate()] * n)]
+    table_pl = [Shard(0) if i in vocab else Replicate() for i in range(n)]
+    table_grad = [Shard(0) if i in vocab else
+                  Partial() if tok_pl[i] == Shard(0) else Replicate()
+                  for i in range(n)]
+    out_pl = [Partial() if i in vocab else tok_pl[i] for i in range(n)]
+
+    def local(tl, tok):
+        t = tok.long() - shard_index(mesh, vocab) * tl.shape[0]
+        mine = (t >= 0) & (t < tl.shape[0])
+        rows = tl[torch.clamp(t, 0, tl.shape[0] - 1)]
+        return rows * mine[..., None].to(rows.dtype)
+
+    return local_map(local, out_placements=out_pl,
+                     in_placements=(table_pl, tok_pl),
+                     in_grad_placements=(table_grad, tok_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        table, tokens)

@@ -6,15 +6,19 @@ reference's ``ssd_chunked``: the hand-written kernel on CUDA, its plain
 float32 version on the CPU.  There is no ``ssd_impl`` switch.  The one-token
 decode (``ssd_decode_step``, ``conv_decode_step``) is plain PyTorch: the
 reference has no kernel for it.  ``p`` is the ``mamba`` module of a
-``repro_torch.models.blocks.Mamba2Block``.
+``repro_torch.models.blocks.Mamba2Block``.  On DTensors (a mesh) the causal
+conv runs on each device's batch rows and channels through ``local_map``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.kernels.ssd import ops as ssd_ops
+from repro_torch.launch.partitioning import gathered
 from repro_torch.models.layers import rmsnorm
 
 __all__ = ["ssd_decode_step", "causal_conv1d", "conv_decode_step",
@@ -38,6 +42,8 @@ def ssd_decode_step(state, x, dt, A, Bm, Cm):
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
                   b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv of width KW.  x (B,S,C), w (C,KW), b (C,)."""
+    if isinstance(x, DTensor):
+        return _conv_sharded(x, w, b)
     kw, S = w.shape[1], x.shape[1]
     xp = F.pad(x, (0, 0, kw - 1, 0))
     wd = w.to(x.dtype)
@@ -45,6 +51,34 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
     for i in range(kw):  # the reference's summation order, in x's dtype
         y = y + xp[:, i:i + S, :] * wd[None, None, :, i]
     return y + b.to(x.dtype)[None, None, :]
+
+
+def _conv_sharded(x, w, b):
+    """:func:`causal_conv1d` of DTensors: each device convolves its batch
+    rows and, where x's channels are split evenly, its channels, over the
+    whole sequence (the conv is depthwise).  The weights are whole on the
+    batch axes, where each device reads them for its own rows: their
+    gradients are partial sums there."""
+    mesh = x.device_mesh
+    C = x.shape[2]
+    x_pl, w_pl, w_grad = [], [], []
+    for p, m in zip(x.placements, mesh.shape):
+        if p == Shard(0):
+            x_pl.append(p)
+            w_pl.append(Replicate())
+            w_grad.append(Partial())
+        elif p == Shard(2) and C % m == 0:
+            x_pl.append(p)
+            w_pl.append(Shard(0))
+            w_grad.append(Shard(0))
+        else:
+            x_pl.append(Replicate())
+            w_pl.append(Replicate())
+            w_grad.append(Replicate())
+    return local_map(causal_conv1d, out_placements=x_pl,
+                     in_placements=(x_pl, w_pl, w_pl),
+                     in_grad_placements=(x_pl, w_grad, w_grad),
+                     device_mesh=mesh, redistribute_inputs=True)(x, w, b)
 
 
 def conv_decode_step(conv_state: torch.Tensor, x_new: torch.Tensor,
@@ -72,7 +106,7 @@ def mamba2_mixer(p, cfg, u: torch.Tensor):
     G, N = cfg.ssm_groups, cfg.ssm_state
     dtype = u.dtype
 
-    zxbcdt = u @ p.in_proj.to(dtype)
+    zxbcdt = u @ gathered(p.in_proj, dtype)
     z, xBC, dt_raw = _split_zxbcdt(zxbcdt, din, din + 2 * G * N)
     kw = p.conv_w.shape[1]
     # a copy, not a view: a view would keep the whole (B, S, zdim)
@@ -94,7 +128,7 @@ def mamba2_mixer(p, cfg, u: torch.Tensor):
     Y = Y + p.D.to(dtype)[None, None, :, None] * x
     y = Y.reshape(B_, S, din)
     y = rmsnorm(y * F.silu(z), p.norm_scale, cfg.norm_eps)
-    return y @ p.out_proj.to(dtype), final, conv_tail
+    return y @ gathered(p.out_proj, dtype), final, conv_tail
 
 
 def mamba2_decode(p, cfg, u: torch.Tensor, conv_state: torch.Tensor,
@@ -108,7 +142,7 @@ def mamba2_decode(p, cfg, u: torch.Tensor, conv_state: torch.Tensor,
     G, N = cfg.ssm_groups, cfg.ssm_state
     dtype = u.dtype
 
-    zxbcdt = u[:, 0] @ p.in_proj.to(dtype)
+    zxbcdt = u[:, 0] @ gathered(p.in_proj, dtype)
     z, xBC, dt_raw = _split_zxbcdt(zxbcdt, din, din + 2 * G * N)
     xBC, new_conv = conv_decode_step(conv_state, xBC, p.conv_w, p.conv_b)
     xBC = F.silu(xBC)
@@ -122,5 +156,5 @@ def mamba2_decode(p, cfg, u: torch.Tensor, conv_state: torch.Tensor,
                                    Bm.float(), Cm.float())
     y = y.to(dtype) + p.D.to(dtype)[None, :, None] * x
     y = rmsnorm(y.reshape(B_, din) * F.silu(z), p.norm_scale, cfg.norm_eps)
-    out = y @ p.out_proj.to(dtype)
+    out = y @ gathered(p.out_proj, dtype)
     return out[:, None, :], new_conv, new_state.to(ssm_state.dtype)

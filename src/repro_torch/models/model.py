@@ -15,17 +15,22 @@ module per layer in an ``nn.ModuleList`` and a Python loop walks them, one
 scan step at a time (a block, or a hybrid's super-layer of ``every`` Mamba2
 blocks and the shared block).  The reference's ``_maybe_remat`` becomes
 ``torch.utils.checkpoint`` around that same step when ``cfg.remat ==
-"full"`` and autograd records; ``logical_constraint`` (sharding) has no
-counterpart on one card.
+"full"`` and autograd records.  The reference's ``logical_constraint``
+sites are kept (``launch.partitioning``): inside a mesh context they
+redistribute DTensors, outside one they return their input.
 
 Entry points, with the reference's names:
 
 * :func:`init_params` — a randomly initialised :class:`Model` on the card
   (``device=None``) or where asked;
+* :func:`param_shapes` / :func:`param_specs` — ``{parameter name: shape}``
+  and ``{parameter name: logical axes}``; :func:`tree_specs` the axes in the
+  reference's stacked tree (its ``param_specs``);
 * :func:`load_jax_params` — the reference's parameter tree, as numpy
   arrays, as a :class:`Model`;
 * :func:`cache_shapes` / :func:`init_cache` — the serving cache, a dict
-  with the reference's keys, shapes and dtypes;
+  with the reference's keys, shapes and dtypes; :func:`cache_specs` its
+  logical axes (the reference dry run's);
 * :func:`prefill` / :func:`decode_step` — run where the model's parameters
   are.  ``decode_step`` updates the cache's tensors in place and returns
   the same dict;
@@ -47,19 +52,26 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.partitioning import (gathered, logical_constraint,
+                                             shard_index)
 from repro_torch.models.attention import update_positions
 from repro_torch.models.blocks import (CONV_KW, DenseBlock, Mamba2Block,
-                                      MoEBlock)
+                                      MoEBlock, dense_block_defs,
+                                      mamba2_block_defs, moe_block_defs)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_lookup, rmsnorm
 from repro_torch.models.params import ParamDef, init_param
 
 __all__ = ["Model", "init_params", "load_jax_params", "decayed",
+           "param_defs", "param_shapes", "param_specs", "tree_specs",
            "export_tree", "import_tree", "tree_shapes", "cache_shapes",
-           "init_cache", "prefill", "decode_step", "forward_train"]
+           "cache_specs", "init_cache", "prefill", "decode_step",
+           "forward_train"]
 
 _ATTN = ("dense", "vlm", "audio")   # stacks of dense blocks
 _KV = ("dense", "moe", "vlm")       # one k/v cache entry per layer
@@ -89,6 +101,21 @@ def _dtype(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
+def _top_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    D, V = cfg.d_model, cfg.vocab
+    return {"embed": ParamDef((V, D), ("vocab", "embed_fsdp")),
+            "final_ln": ParamDef((D,), (None,), init="ones"),
+            "head": ParamDef((D, V), ("embed_fsdp", "vocab"))}
+
+
+def _block_defs(cfg: ModelConfig) -> Dict[str, Dict[str, ParamDef]]:
+    if cfg.family in _ATTN:
+        return dense_block_defs(cfg)
+    if cfg.family == "moe":
+        return moe_block_defs(cfg)
+    return mamba2_block_defs(cfg)
+
+
 class Model(nn.Module):
     """embed, one block per layer, (hybrid) the shared block, final_ln,
     head; parameter names follow the reference's tree (``blocks.3.mamba.
@@ -99,8 +126,8 @@ class Model(nn.Module):
         _check_family(cfg)
         super().__init__()
         self.cfg = cfg
-        D, V = cfg.d_model, cfg.vocab
-        self.embed = nn.Parameter(init_param(ParamDef((V, D)), generator,
+        top = _top_defs(cfg)
+        self.embed = nn.Parameter(init_param(top["embed"], generator,
                                              device))
         block = (DenseBlock if cfg.family in _ATTN else
                  MoEBlock if cfg.family == "moe" else Mamba2Block)
@@ -108,10 +135,50 @@ class Model(nn.Module):
                                     for _ in range(cfg.n_layers))
         if cfg.family == "hybrid":
             self.shared = DenseBlock(cfg, generator, device)
-        self.final_ln = nn.Parameter(init_param(
-            ParamDef((D,), init="ones"), generator, device))
-        self.head = nn.Parameter(init_param(ParamDef((D, V)), generator,
-                                            device))
+        self.final_ln = nn.Parameter(init_param(top["final_ln"], generator,
+                                                device))
+        self.head = nn.Parameter(init_param(top["head"], generator, device))
+
+
+def param_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
+    """``{parameter name: ParamDef}`` in :class:`Model`'s order (its
+    ``named_parameters``), without building it."""
+    _check_family(cfg)
+    out = dict(_top_defs(cfg))  # a module's own parameters come first
+
+    def add(prefix, defs):
+        for sub, group in defs.items():
+            for name, d in group.items():
+                out[f"{prefix}.{sub}.{name}"] = d
+
+    for i in range(cfg.n_layers):
+        add(f"blocks.{i}", _block_defs(cfg))
+    if cfg.family == "hybrid":
+        add("shared", dense_block_defs(cfg))
+    return out
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """``{parameter name: shape}`` (float32 masters)."""
+    return {k: d.shape for k, d in param_defs(cfg).items()}
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, tuple]:
+    """``{parameter name: logical axes}``, the reference's declarations."""
+    return {k: d.axes for k, d in param_defs(cfg).items()}
+
+
+def tree_specs(cfg: ModelConfig) -> Dict:
+    """:func:`param_specs` in the reference's stacked tree (its
+    ``param_specs``): a block parameter gains one unsharded "layer" axis
+    per stacked dimension."""
+    out: Dict = {}
+    for name, axes in param_specs(cfg).items():
+        path, idx = _ref_path(cfg, name)
+        if idx and idx != (0,) * len(idx):
+            continue
+        _put(out, path, (("layer",) * len(idx)) + tuple(axes))
+    return out
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -263,6 +330,28 @@ def cache_shapes(cfg: ModelConfig, batch: int, capacity: int) -> Dict:
     return out
 
 
+def cache_specs(cfg: ModelConfig, model_size: int) -> Dict[str, tuple]:
+    """``{name: logical axes}`` of the serving cache on a mesh whose
+    ``model`` axis has ``model_size`` devices, as the reference's dry run
+    (``launch/dryrun.py::_cache_axes``): k/v shard by KV heads, or by
+    sequence (flash-decoding style) when the heads do not divide."""
+    out = {}
+    for name, (shape, _) in cache_shapes(cfg, 1, 1).items():
+        nd = len(shape)
+        if name in ("k", "v"):
+            out[name] = (("layer", "batch", None, "kv_heads", None)
+                         if cfg.n_kv_heads % model_size == 0 else
+                         ("layer", "batch", "kv_seq", None, None))
+        elif name == "kv_positions":
+            out[name] = ("batch", None)
+        elif name == "ssm":
+            out[name] = ("layer",) * (nd - 4) + ("batch", "ssm_heads",
+                                                  None, None)
+        else:  # conv
+            out[name] = ("layer",) * (nd - 3) + ("batch", None, "ssm_inner")
+    return out
+
+
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
                device=None) -> Dict:
     """An empty serving cache: zeros, and -1 for every KV position."""
@@ -281,8 +370,10 @@ def init_cache(cfg: ModelConfig, batch: int, capacity: int,
 
 def _embed_inputs(model: Model, cfg: ModelConfig, batch: Dict):
     if "embeds" in batch:  # a stubbed modality frontend (vlm / audio)
-        return batch["embeds"].to(_dtype(cfg.dtype))
-    return embed_lookup(model.embed, batch["tokens"], _dtype(cfg.dtype))
+        h = batch["embeds"].to(_dtype(cfg.dtype))
+    else:
+        h = embed_lookup(model.embed, batch["tokens"], _dtype(cfg.dtype))
+    return logical_constraint(h, "batch", None, None)
 
 
 def _positions(Bsz: int, S: int, device) -> torch.Tensor:
@@ -344,10 +435,21 @@ def _forward_seq(model: Model, cfg: ModelConfig, h, positions,
     With ``remat`` (training only) each scan step keeps only its input for
     the backward and runs again there; the aux terms come out of the
     checkpoint with ``h``."""
+    def sp(x):
+        """The residual carry between blocks: batch-sharded, whole over
+        ``model`` (Megatron's layout; a DTensor's sums left partial by a
+        row-parallel product are reduced here), or with
+        ``cfg.seq_parallel`` seq-sharded over ``model`` (Megatron-SP
+        analogue: the tensor saved between blocks)."""
+        if cfg.seq_parallel:
+            return logical_constraint(x, "batch", "seq_sp", None)
+        return logical_constraint(x, "batch", None, None)
+
     def step_h_aux(x, blocks, shared):
         out = _scan_step(cfg, blocks, shared, x, positions, False)
-        return out[0], out[-1]
+        return sp(out[0]), out[-1]
 
+    h = sp(h)
     kvs, ssms, convs, auxs = [], [], [], []
     for blocks, shared in _scan_steps(model, cfg):
         if remat:
@@ -357,6 +459,7 @@ def _forward_seq(model: Model, cfg: ModelConfig, h, positions,
             continue
         h, kv, ssm, conv, aux = _scan_step(cfg, blocks, shared, h,
                                            positions, collect_cache)
+        h = sp(h)
         kvs += kv
         ssms += ssm
         convs += conv
@@ -374,7 +477,7 @@ def _head_logits(model: Model, cfg: ModelConfig, h) -> torch.Tensor:
     """float32 logits of compute-dtype activations and head, as the
     reference's ``preferred_element_type=float32``."""
     h = rmsnorm(h, model.final_ln, cfg.norm_eps)
-    return h.float() @ model.head.to(h.dtype).float()
+    return h.float() @ gathered(model.head, h.dtype).float()
 
 
 def _fused_head_ce(model: Model, cfg: ModelConfig, h: torch.Tensor,
@@ -383,20 +486,62 @@ def _fused_head_ce(model: Model, cfg: ModelConfig, h: torch.Tensor,
     the logits are rounded to the compute dtype before the max and the
     exponent, and the gold logit is ``h · head[:, label]`` in float32 (a
     gather of head columns, not of the logits)."""
-    h = rmsnorm(h, model.final_ln, cfg.norm_eps)
-    head = model.head.to(h.dtype)
+    h = logical_constraint(rmsnorm(h, model.final_ln, cfg.norm_eps),
+                           "batch", None, None)
+    head = gathered(model.head, h.dtype)
     # in bf16 one rounding of the float32 accumulation, as the reference's
     # einsum(preferred_element_type=float32).astype(h.dtype)
-    logits = h @ head
-    m = torch.amax(logits, dim=-1)
+    logits = logical_constraint(h @ head, "batch", None, "vocab")
+    # over a mesh the max is taken without its gradient, which is zero
+    # (1 - the softmax's sum), as Megatron's vocab-parallel cross entropy
+    m = torch.amax(logits.detach() if isinstance(logits, DTensor)
+                   else logits, dim=-1)
     ex = torch.exp((logits - m[..., None]).float())
-    lse = m.float() + torch.log(torch.sum(ex, dim=-1))
+    lse = m.float() + torch.log(logical_constraint(torch.sum(ex, dim=-1),
+                                                   "batch", None))
+    if isinstance(head, DTensor):
+        return torch.mean(lse - _sharded_gold(h, head, labels))
+    return torch.mean(lse - _gold(h, head, labels))
+
+
+def _gold(h, head, labels):
+    """float32 ``h · head[:, label]`` (B, S): a gather of head columns, not
+    of the logits."""
     Bsz, S = labels.shape
     # advanced indexing: its backward accumulates deterministically on CUDA
     gold_cols = head[:, labels.reshape(-1).long()]             # (D, B*S)
     gold_cols = gold_cols.T.reshape(Bsz, S, head.shape[0])
-    gold = torch.sum(h.float() * gold_cols.float(), dim=-1)
-    return torch.mean(lse - gold)
+    return torch.sum(h.float() * gold_cols.float(), dim=-1)
+
+
+def _sharded_gold(h, head, labels):
+    """:func:`_gold` of DTensors, vocab-parallel (Megatron): each device
+    reads the head columns of the labels in its vocabulary slice, and the
+    partial sums reduce over the mesh axes that split the vocabulary."""
+    mesh = head.device_mesh
+    vocab_dims = [i for i, p in enumerate(head.placements) if p == Shard(1)]
+    row_pl = [p if p == Shard(0) else Replicate() for p in h.placements]
+    out_pl = [Partial() if i in vocab_dims else p
+              for i, p in enumerate(row_pl)]
+
+    def local(hl, headl, labl):
+        lab = labl.long() - shard_index(mesh, vocab_dims) * headl.shape[1]
+        mine = (lab >= 0) & (lab < headl.shape[1])
+        return _gold(hl, headl, torch.where(mine, lab, 0)) * mine
+
+    head_pl = [Shard(1) if i in vocab_dims else Replicate()
+               for i in range(len(head.placements))]
+    # h is whole on every vocabulary device, each of which reads it for
+    # its own labels, and the head whole on every batch shard, each of
+    # which reads it for its own tokens: their gradients are partial sums
+    head_grad = [Partial() if p == Shard(0) else q
+                 for p, q in zip(row_pl, head_pl)]
+    gold = local_map(local, out_placements=out_pl,
+                     in_placements=(row_pl, head_pl, row_pl),
+                     in_grad_placements=(out_pl, head_grad, row_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        h, head, labels)
+    return gold.redistribute(mesh, row_pl)
 
 
 def forward_train(model: Model, cfg: ModelConfig, batch: Dict):

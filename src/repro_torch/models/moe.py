@@ -23,9 +23,15 @@ rounding alone.  The gathers are advanced indexing, whose backward on CUDA
 accumulates through a sort, not atomics.
 
 :func:`moe_block_local` routes each of ``n_shards`` slices of the token
-stream on its own, with a per-shard capacity, as the reference's
-shard-local dispatch does without a mesh.  Its expert-parallel form across
-cards (the reference's ``shard_map`` branch) waits for ROADMAP A11d.
+stream on its own, with a per-shard capacity (``n_shards <= 0``: one per
+batch shard of the mesh context, ``launch.partitioning.
+current_batch_shards()``).  Given DTensors (a mesh), both blocks take the
+expert-parallel form of the reference's ``_moe_shardmap``: dispatch and
+combine run on each data shard's tokens through ``local_map`` (replicated
+over ``model``), the expert products run on the ``expert``-sharded weights
+(each ``model`` device its own experts), and each device's combine of its
+experts' rows is a partial sum that the ``y`` constraint reduces over
+``model``.  The combine keeps the design above: no scatter-add.
 """
 
 from __future__ import annotations
@@ -34,6 +40,13 @@ from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
+from repro_torch.launch.partitioning import (current_batch_axes,
+                                             current_batch_shards,
+                                             gathered, logical_constraint,
+                                             shard_index)
 
 __all__ = ["Routing", "route", "moe_capacity", "moe_block",
            "moe_block_local"]
@@ -92,6 +105,55 @@ def route(xs: torch.Tensor, router_w: torch.Tensor, topk: int,
     return Routing(probs, expert_idx, gate, order, slot, keep, counts)
 
 
+def _dispatch(xs, router_w, topk, C):
+    """Route and dispatch ``xs`` (s, Tl, d): ``(r, buf (s, E, C, d))``, the
+    buffer one scatter of each sorted entry's token into each shard's
+    (E·C + 1) rows, the last the drop row."""
+    n_shards, Tl, d = xs.shape
+    E = router_w.shape[1]
+    r = route(xs, router_w, topk, C)
+    s_idx = torch.arange(n_shards, device=xs.device)[:, None]
+    rows = (s_idx * Tl + r.order // topk).reshape(-1)
+    gathered = xs.reshape(n_shards * Tl, d)[rows]          # (s·Tl·k, d)
+    stride = E * C + 1
+    flat_slot = (s_idx * stride + r.slot).reshape(-1)
+    buf = xs.new_zeros((n_shards * stride, d)).index_put(
+        (flat_slot,), gathered)
+    buf = buf.reshape(n_shards, stride, d)[:, :E * C]
+    return r, buf.reshape(n_shards, E, C, d)
+
+
+def _combine(out, r, topk, e0=0):
+    """``y`` (s, Tl, d) from the expert outputs ``out`` (s, El, C, d) of
+    experts ``e0 .. e0 + El``: each flat entry t·k + j reads its own row
+    back (the sort's permutation inverted) and the k contributions of a
+    token are summed; no scatter-add, no atomics.  Entries routed to other
+    experts contribute zero (a partial sum, when ``El`` < E)."""
+    n_shards, El, C, d = out.shape
+    Tl = r.gate.shape[1]
+    s_idx = torch.arange(n_shards, device=out.device)[:, None]
+    slot_u = torch.empty_like(r.slot).scatter_(1, r.order, r.slot)
+    keep_u = torch.empty_like(r.keep).scatter_(1, r.order, r.keep)
+    local = slot_u - e0 * C
+    mine = keep_u & (local >= 0) & (local < El * C)
+    pick = (s_idx * (El * C)
+            + torch.clamp(local, min=0, max=El * C - 1)).reshape(-1)
+    w = (r.gate.reshape(n_shards, Tl * topk) * mine).to(out.dtype)
+    contrib = out.reshape(n_shards * El * C, d)[pick] * w.reshape(-1, 1)
+    return contrib.reshape(n_shards, Tl, topk, d).sum(dim=2)
+
+
+def _aux(r, T, topk):
+    """Switch-style load-balance aux loss, in float32; its gradient flows
+    through the probabilities (``me``), the counts carry none."""
+    E = r.probs.shape[-1]
+    me = r.probs.mean(dim=(0, 1))
+    ce = r.counts.sum(0).float() / (T * topk)
+    return dict(moe_aux_loss=E * torch.sum(me * ce),
+                moe_dropped_frac=1.0 - r.keep.float().sum() / (T * topk),
+                moe_frac_tokens=ce.mean())
+
+
 def _moe(x, router_w, w_gate, w_up, w_down, topk, capacity_factor,
          n_shards):
     B, S, d = x.shape
@@ -99,50 +161,83 @@ def _moe(x, router_w, w_gate, w_up, w_down, topk, capacity_factor,
     T = B * S
     Tl = T // n_shards
     C = moe_capacity(Tl, E, topk, capacity_factor)
-    xs = x.reshape(n_shards, Tl, d)
-    r = route(xs, router_w, topk, C)
-    dev = x.device
-    s_idx = torch.arange(n_shards, device=dev)[:, None]
-
-    # ---- dispatch: gather each sorted entry's token, one scatter into
-    # each shard's (E·C + 1) rows, the last the drop row
-    rows = (s_idx * Tl + r.order // topk).reshape(-1)
-    gathered = x.reshape(T, d)[rows]                        # (T·k, d)
-    stride = E * C + 1
-    flat_slot = (s_idx * stride + r.slot).reshape(-1)
-    buf = x.new_zeros((n_shards * stride, d)).index_put(
-        (flat_slot,), gathered)
-    buf = buf.reshape(n_shards, stride, d)[:, :E * C]
+    if isinstance(x, DTensor):  # a mesh: the reference's sharding sites
+        return _moe_sharded(x, router_w, w_gate, w_up, w_down, topk, C,
+                            n_shards)
+    r, buf = _dispatch(x.reshape(n_shards, Tl, d), router_w, topk, C)
     # (E, s·C, d): one batch of rows per expert
-    buf = buf.reshape(n_shards, E, C, d).transpose(0, 1).reshape(
-        E, n_shards * C, d)
+    buf = buf.transpose(0, 1).reshape(E, n_shards * C, d)
 
     # ---- expert products (active work only), in the compute dtype
     dtype = x.dtype
     g = torch.bmm(buf, w_gate.to(dtype))
     u = torch.bmm(buf, w_up.to(dtype))
     out = torch.bmm(F.silu(g) * u, w_down.to(dtype))        # (E, s·C, d)
-    out = out.reshape(E, n_shards, C, d).transpose(0, 1).reshape(
-        n_shards * E * C, d)
+    out = out.reshape(E, n_shards, C, d).transpose(0, 1)
 
-    # ---- combine: each flat entry t·k + j reads its own row back (the
-    # sort's permutation inverted), then the k contributions of a token
-    # are summed; no scatter-add, no atomics
-    slot_u = torch.empty_like(r.slot).scatter_(1, r.order, r.slot)
-    keep_u = torch.empty_like(r.keep).scatter_(1, r.order, r.keep)
-    pick = (s_idx * (E * C) + torch.clamp(slot_u, max=E * C - 1)).reshape(-1)
-    w = (r.gate.reshape(n_shards, Tl * topk) * keep_u).to(dtype)
-    contrib = out[pick] * w.reshape(-1, 1)                  # (T·k, d)
-    y = contrib.reshape(T, topk, d).sum(dim=1)
+    y = _combine(out, r, topk)
+    return y.reshape(B, S, d), _aux(r, T, topk)
 
-    # Switch-style load-balance aux loss, in float32; its gradient flows
-    # through the probabilities (``me``), the counts carry none
-    me = r.probs.mean(dim=(0, 1))
-    ce = r.counts.sum(0).float() / (T * topk)
-    aux = dict(moe_aux_loss=E * torch.sum(me * ce),
-               moe_dropped_frac=1.0 - r.keep.float().sum() / (T * topk),
-               moe_frac_tokens=ce.mean())
-    return y.reshape(B, S, d), aux
+
+def _moe_sharded(x, router_w, w_gate, w_up, w_down, topk, C, n_shards):
+    """The reference's ``_moe_shardmap`` on DTensors: dispatch and combine
+    per data shard (``local_map``, replicated over ``model``), the expert
+    products on the ``expert``-sharded weights, each ``model`` device's
+    combine a partial sum that the ``y`` constraint reduces."""
+    B, S, d = x.shape
+    T = B * S
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    batch = current_batch_axes() or tuple(
+        a for a in ("pod", "data") if a in names)
+    batch_pl = [Shard(0) if n in batch and n_shards > 1 else Replicate()
+                for n in names]
+    repl = [Replicate()] * len(names)
+    xs = logical_constraint(x.reshape(n_shards, T // n_shards, d),
+                            "batch", None, None)
+
+    def dispatch(xl, rw):
+        r, buf = _dispatch(xl, rw, topk, C)
+        return (buf, *r)
+
+    # the router is whole on every data shard, each of which routes its
+    # own tokens: its gradient is a partial sum over the batch axes
+    router_grad = [Partial() if p == Shard(0) else p for p in batch_pl]
+    disp = local_map(dispatch, out_placements=(batch_pl,) * 8,
+                     in_placements=(batch_pl, repl),
+                     in_grad_placements=(batch_pl, router_grad),
+                     device_mesh=mesh, redistribute_inputs=True)
+    buf, *fields = disp(xs, router_w)
+    r = Routing(*fields)
+    buf = logical_constraint(buf, "batch", None, None, None)
+
+    dtype = x.dtype
+    g = torch.einsum("secd,edf->secf", buf, gathered(w_gate, dtype))
+    u = torch.einsum("secd,edf->secf", buf, gathered(w_up, dtype))
+    out = torch.einsum("secf,efd->secd", F.silu(g) * u,
+                       gathered(w_down, dtype))
+    out = logical_constraint(out, "batch", "expert", None, None)
+
+    # each device combines the rows of its own experts: a partial sum over
+    # the mesh axes that split the experts
+    expert_dims = [i for i, p in enumerate(out.placements) if p == Shard(1)]
+    out_pl = [Shard(1) if i in expert_dims else p
+              for i, p in enumerate(batch_pl)]
+    y_pl = [Partial() if i in expert_dims else p
+            for i, p in enumerate(batch_pl)]
+
+    def combine(ol, *rl):
+        e0 = shard_index(mesh, expert_dims) * ol.shape[1]
+        return _combine(ol, Routing(*rl), topk, e0)
+
+    # the gates are whole on every expert device, each of which reads
+    # those of its own experts: their gradients are partial sums there
+    y = local_map(combine, out_placements=y_pl,
+                  in_placements=(out_pl,) + (batch_pl,) * 7,
+                  in_grad_placements=(out_pl,) + (y_pl,) * 7,
+                  device_mesh=mesh, redistribute_inputs=True)(out, *r)
+    y = logical_constraint(y, "batch", None, None)
+    return y.reshape(B, S, d), _aux(r, T, topk)
 
 
 def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
@@ -159,20 +254,16 @@ def moe_block(x: torch.Tensor, router_w: torch.Tensor, w_gate: torch.Tensor,
 def moe_block_local(x: torch.Tensor, router_w: torch.Tensor,
                     w_gate: torch.Tensor, w_up: torch.Tensor,
                     w_down: torch.Tensor, *, topk: int,
-                    capacity_factor: float = 1.25, n_shards: int = 0,
-                    mesh=None) -> Tuple[torch.Tensor,
-                                        Dict[str, torch.Tensor]]:
+                    capacity_factor: float = 1.25, n_shards: int = 0
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Shard-local dispatch: each of ``n_shards`` slices of the ``B·S``
     tokens is routed on its own with a per-shard capacity (``n_shards <=
-    0`` means 1, one card's batch; a count that does not divide the tokens
-    falls back to 1, as the reference).  The expert-parallel exchange
-    across the cards of a ``mesh`` waits for ROADMAP A11d."""
-    n_shards = max(n_shards, 1)
+    0`` means one per batch shard of the mesh context, 1 outside one; a
+    count that does not divide the tokens falls back to 1, as the
+    reference).  Given DTensors, the expert-parallel form (module doc)."""
+    if n_shards <= 0:
+        n_shards = current_batch_shards()
     if (x.shape[0] * x.shape[1]) % n_shards:
         n_shards = 1
-    if mesh is not None and n_shards > 1:
-        raise NotImplementedError(
-            "moe_block_local across a device mesh (the reference's "
-            "shard_map dispatch) waits for ROADMAP A11d")
     return _moe(x, router_w, w_gate, w_up, w_down, topk, capacity_factor,
                 n_shards)

@@ -1,11 +1,12 @@
 """Parameter declarations and their initialisation.
 
-Each parameter is declared once as a :class:`ParamDef` (shape and init
-kind), as in the reference's ``models/params.py``; a :class:`ParamModule`
-turns a dict of them into ``nn.Parameter``s drawn from an explicit
-``torch.Generator``.  The reference's logical sharding axes return with the
-port of ``launch/partitioning``; its stacked scan axis has no counterpart,
-since the port holds one module per layer.  Masters are float32 (the
+Each parameter is declared once as a :class:`ParamDef` (shape, logical
+sharding axes and init kind), as in the reference's ``models/params.py``;
+a :class:`ParamModule` turns a dict of them into ``nn.Parameter``s drawn
+from an explicit ``torch.Generator``.  The axes are the reference's
+(``launch.partitioning`` maps them to mesh axes); its stacked scan axis
+("layer", never sharded) is not declared, since the port holds one module
+per layer, and ``models.tree_specs`` adds it back.  Masters are float32 (the
 configs' ``param_dtype``).  The generator gives other numbers than
 ``jax.random`` from the same seed: carry the reference's weights with
 :func:`repro_torch.models.load_jax_params` to compare the two.
@@ -19,16 +20,23 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-__all__ = ["ParamDef", "ParamModule", "init_param"]
+__all__ = ["Axes", "ParamDef", "ParamModule", "init_param"]
+
+Axes = Tuple[Optional[str], ...]
 
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
+    axes: Axes                # logical sharding axis of each dimension
     init: str = "normal"      # normal | zeros | ones
     init_scale: float = 0.02
     # draws the value from a generator on the device it should be made on
     custom_init: Optional[Callable[[torch.Generator], torch.Tensor]] = None
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
 
 
 def init_param(d: ParamDef, generator: Optional[torch.Generator],

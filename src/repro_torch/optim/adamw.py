@@ -31,13 +31,16 @@ __all__ = ["adamw_init", "adamw_update", "cosine_schedule"]
 
 
 def adamw_init(params: Mapping[str, torch.Tensor]) -> Dict:
-    """Zero float32 moments beside ``params`` (``{name: tensor}``) and a
-    zero int32 step count, on the parameters' device."""
+    """Zero float32 moments beside ``params`` (``{name: tensor}``, laid
+    out as each parameter: a DTensor's moments are DTensors) and a zero
+    int32 step count, on the parameters' device."""
     dev = next(iter(params.values())).device
     return {
-        "m": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        "m": {k: torch.zeros_like(p, dtype=torch.float32,
+                                  memory_format=torch.contiguous_format)
               for k, p in params.items()},
-        "v": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        "v": {k: torch.zeros_like(p, dtype=torch.float32,
+                                  memory_format=torch.contiguous_format)
               for k, p in params.items()},
         "count": torch.zeros((), dtype=torch.int32, device=dev),
     }

@@ -4,8 +4,11 @@
 PyTorch runs eagerly, so a step is the model call with the config bound.
 :func:`make_train_step`'s step updates the parameters and the AdamW state
 in place, PyTorch's counterpart of the reference's donated buffers, and
-returns the metrics.  :func:`make_encode_step` is an encoder-only model's
-(hubert's) "prefill": the full forward to every frame's logits.
+returns the metrics; given DTensor parameters (a mesh) it first lays each
+gradient out as its parameter (the data-parallel reduction, the
+reference's ``out_shardings``).  :func:`make_encode_step` is an
+encoder-only model's (hubert's) "prefill": the full forward to every
+frame's logits.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import decayed, decode_step, forward_train, prefill
 from repro_torch.models.config import ModelConfig
@@ -41,6 +45,9 @@ def make_train_step(cfg: ModelConfig, *, peak_lr: float = 3e-4,
         loss, metrics = forward_train(model, cfg, batch)
         grads = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True)
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 if isinstance(g, DTensor) else g
+                 for g, p in zip(grads, params.values())]
         lr = lr_fn(step)
         stats = adamw_update(dict(zip(params, grads)), opt_state, params,
                              lr=lr, weight_decay=weight_decay,

@@ -158,3 +158,96 @@ def test_cpu_backward_counts_no_lm_kernel_launch():
     ssd_ops.ssd(X, A, Bm, Cm, 8)[0].sum().backward()
     assert q.grad is not None and X.grad is not None
     assert (flash_ops.LAUNCHES, ssd_ops.LAUNCHES) == before
+
+
+LAUNCH_MODULES = ["launch/shapes.py", "launch/mesh.py",
+                  "launch/partitioning.py", "launch/dryrun.py",
+                  "launch/roofline.py", "kernels/dryrun.py"]
+
+
+@pytest.mark.parametrize("rel", LAUNCH_MODULES)
+def test_dry_run_modules_are_checked(rel):
+    """The dry run and roofline modules are among the files held to no
+    ``jax`` / ``repro`` import above."""
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path in FILES
+    assert not {m.split(".")[0] for m in _imports(path)} & {
+        "jax", "jaxlib", "repro"}
+
+
+def test_dry_run_never_takes_the_plain_attention(tmp_path, monkeypatch):
+    """Inside a dry run the LM kernels' wrappers call their operators
+    (fake implementations) whatever the fake tensors' device: the plain
+    versions, the dense S x S attention among them, are never reached,
+    on one device and on a mesh."""
+    import dataclasses
+
+    from repro_torch.launch import dryrun, shapes
+
+    def refuse(*a, **kw):
+        raise AssertionError("a dry run reached a plain version")
+    for mod, names in ((flash_ops.ref, ("flash_attention",
+                                        "flash_attention_fwd",
+                                        "flash_attention_bwd")),
+                       (ssd_ops.ref, ("ssd", "ssd_bwd"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    cell = dataclasses.replace(shapes.SHAPES["train_4k"], batch=4, seq=32)
+    for mesh in ((1, 1), (2, 2)):
+        rec = dryrun.run_cell("zamba2-2.7b", cell, False,
+                              out_dir=str(tmp_path),
+                              cfg_override=smoke_config("zamba2-2.7b"),
+                              mesh_shape=mesh)
+        assert rec["status"] == "ok"
+    with pytest.raises(AssertionError, match="plain version"):
+        flash_ops.flash_attention(*(torch.zeros(1, 4, 2, 8)
+                                    for _ in range(3)))
+
+
+def _run_model(cfg, seed=0):
+    """Prefill, two decode steps and one training loss with its gradients
+    of a smoke model on the CPU."""
+    from repro_torch.models import decode_step, forward_train, prefill
+    model = init_params(cfg, torch.Generator().manual_seed(seed),
+                        device="cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab, (2, 12), generator=g,
+                         dtype=torch.int32)
+    logits, cache = prefill(model, cfg, {"tokens": toks}, capacity=14)
+    outs = [logits]
+    for t in range(2):
+        pos = torch.full((2,), 12 + t, dtype=torch.int32)
+        logits, cache = decode_step(model, cfg, {"tokens": toks[:, t]},
+                                    cache, pos)
+        outs.append(logits)
+    loss, _ = forward_train(model, cfg, {"tokens": toks, "labels": toks})
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return outs + list(cache.values()) + [loss] + list(grads)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "zamba2-2.7b",
+                                  "olmoe-1b-7b"])
+def test_partitioning_sites_are_no_ops_outside_a_mesh(arch, monkeypatch):
+    """The ``logical_constraint`` and ``gathered`` sites in the models
+    change nothing outside a mesh context (or inside a one-device one):
+    the outputs, caches, loss and gradients are bitwise those of the
+    models with every site replaced by the identity and a plain cast."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import partitioning
+    from repro_torch.models import blocks, layers, mamba2, model, moe
+    cfg = smoke_config(arch)
+    got = _run_model(cfg)
+    with mesh_mod.fake_world():
+        with partitioning.mesh_context(mesh_mod.make_mesh(
+                (1, 1), ("data", "model"))):
+            in_mesh = _run_model(cfg)
+    for mod in (blocks, layers, mamba2, model, moe):
+        if hasattr(mod, "logical_constraint"):
+            monkeypatch.setattr(mod, "logical_constraint",
+                                lambda x, *axes: x)
+        if hasattr(mod, "gathered"):
+            monkeypatch.setattr(mod, "gathered", lambda w, dt: w.to(dt))
+    want = _run_model(cfg)
+    assert len(got) == len(want) == len(in_mesh)
+    for a, b, c in zip(got, want, in_mesh):
+        assert torch.equal(a, b) and torch.equal(c, b)

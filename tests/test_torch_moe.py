@@ -184,12 +184,24 @@ def test_bf16_matches_reference():
 
 
 def test_mesh_waits_for_a11d():
+    """A11d landed: the mesh comes from the partitioning context (no
+    ``mesh=`` argument, no ``NotImplementedError``) and ``n_shards <= 0``
+    means the context's batch shards, as in the reference: 1 outside a
+    context and on a (1, 1) mesh, where one shard is ``moe_block``
+    bitwise.  The expert-parallel form across 8 processes is
+    ``tests/test_torch_moe_distributed.py``'s."""
+    from repro_torch.launch.mesh import fake_world, make_mesh
+    from repro_torch.launch.partitioning import (current_batch_shards,
+                                                 mesh_context)
     args = [torch.from_numpy(a) for a in _inputs()]
-    with pytest.raises(NotImplementedError, match="A11d"):
-        moe.moe_block_local(*args, topk=K, n_shards=2, mesh=object())
-    # one shard needs no exchange: the mesh changes nothing
-    y, _ = moe.moe_block_local(*args, topk=K, n_shards=1, mesh=object())
-    assert torch.equal(y, moe.moe_block(*args, topk=K)[0])
+    want = moe.moe_block(*args, topk=K)[0]
+    y, _ = moe.moe_block_local(*args, topk=K, n_shards=0)
+    assert torch.equal(y, want)
+    with fake_world():
+        with mesh_context(make_mesh((1, 1), ("data", "model"))):
+            assert current_batch_shards() == 1
+            y, _ = moe.moe_block_local(*args, topk=K, n_shards=0)
+    assert torch.equal(y, want)
 
 
 def test_unaligned_shards_fall_back_to_one():
