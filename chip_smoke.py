@@ -70,10 +70,16 @@ Phases (any failure exits non-zero; nothing is caught):
    ``RetrySpec("ksplus")``: release order against the DAG, no
    unschedulable job, exactly one ``oom_probe`` launch per dt group (the
    attempt-1 probe) and no other wastage launch; wall seconds, drains,
-   drain iterations and host reads, retries.  The same scenario at 400
+   drain iterations and host reads, retries.  The same replay again with
+   the node-sharded drain, ``shard=1`` on a one-rank process group over
+   the card (two all-reduces a drain iteration): placements equal to the
+   unsharded drain's; wall seconds, drains, iterations, host reads and
+   collectives.  The same scenario at 400
    tasks (seed 0) through ``fused`` and ``packed`` on the card and
-   ``legacy``: placements, retries and unschedulable identical, and the
-   fused engine equal to itself on the CPU over the carried trace.  The
+   ``legacy``: placements, retries and unschedulable identical, the
+   fused engine equal to itself on the CPU over the carried trace, and
+   ``fused`` with ``shard=1`` equal to ``fused`` and ``packed`` (every
+   integer output and the makespan exact, wastage rtol 1e-6).  The
    robustness suite (3 scenarios x 2 arrivals x 3 fault kinds, 96 tasks)
    through ``run_suite`` on the card, each case replayed by ``fused`` and
    ``packed`` with equal placements, evictions, starved, doomed and
@@ -125,18 +131,21 @@ Phases (any failure exits non-zero; nothing is caught):
    (``A_log``, ``dt_bias``), held to a relative L2 error of 0.1 (see
    ``train_card_vs_cpu``); (d) ``launch.train.train("zamba2-2.7b", smoke=False,
    seq=2048, batch=1, steps=8)`` (``remat="none"``, as the reference's
-   ``train``): seconds per step (median after the first), tokens/s, peak
+   ``train``) on its local mesh, ``(1, 1)`` over the card: every
+   parameter, AdamW moment and batch array a DTensor on that CUDA mesh;
+   seconds per step (median after the first), tokens/s, peak
    memory, every loss finite, and exactly 54 ``ssd`` + 54 ``ssd_bwd`` and
    9 ``flash_attention`` + 9 ``flash_attention_bwd`` launches in every
    step; its last step under ``torch.profiler`` (device ms by kernel
    kind); then ``make_train_step`` with the config's own ``remat="full"``
    at 2 x 2048 for 3 steps, where the forward kernels launch twice a step;
-   (e) zamba2-smoke trained on the card with checkpoints every 3 steps,
-   killed at step 5 and resumed: losses bitwise those of an uninterrupted
-   run; (f) both backward kernels timed at the 1 x 2048 training shapes
-   (``ssd_bwd`` with the forward's saved entering states, as training
-   calls it, and alone) beside their plain versions, their bounds, PR 17's
-   times and, for attention, the backward of
+   (e) zamba2-smoke trained on the card's mesh (DTensor parameters) with
+   checkpoints every 3 steps, killed at step 5 and resumed: losses bitwise
+   those of an uninterrupted run; (f) both backward kernels timed at the
+   1 x 2048 training shapes (``ssd_bwd`` with the forward's saved
+   entering states, as training calls it, and alone) beside their plain
+   versions, their bounds, PR 17's times and, for attention, the
+   backward of
    ``scaled_dot_product_attention``;
 15. the moe, vlm and audio families: (a) olmoe-1b-7b at full width and
    depth (16 layers, 64 experts top-8), ``serve_demo``'s loop for 4 x 2048
@@ -174,7 +183,8 @@ Phases (any failure exits non-zero; nothing is caught):
 16. the dry run and the roofline (``launch.dryrun`` / ``launch.roofline``,
    on the host CPU with fake tensors): (a) the steps phases 9, 14 and 15
    ran at full width — zamba2-2.7b prefill 4 x 2048 and training 1 x 2048
-   (``remat="none"``), olmoe-1b-7b prefill 4 x 2048, qwen2-vl-72b (4
+   (``remat="none"``, the card's step on the same one-card mesh),
+   olmoe-1b-7b prefill 4 x 2048, qwen2-vl-72b (4
    layers) prefill 2 x 2048 and hubert-xlarge encode 4 x 1500 — dry-run on
    a one-card mesh with the card's float32 masters: predicted FLOPs, HBM
    bytes, peak and the roofline's compute and memory seconds beside the
@@ -252,11 +262,15 @@ WARM_RUNS = 5   # phase 16's step time: the median of this many warm calls
 
 def tensor_bytes(*objs) -> int:
     """Bytes of the distinct storages of the tensors in ``objs`` (modules,
-    dicts, lists and tensors, nested)."""
+    dicts, lists and tensors, nested; a DTensor's local shard)."""
     seen = {}
 
+    from torch.distributed.tensor import DTensor
+
     def walk(o):
-        if isinstance(o, torch.Tensor):
+        if isinstance(o, DTensor):
+            walk(o.to_local())
+        elif isinstance(o, torch.Tensor):
             st = o.untyped_storage()
             seen[st.data_ptr()] = st.nbytes()
         elif isinstance(o, torch.nn.Module):
@@ -1363,22 +1377,42 @@ def cluster_replay(err, device="cuda"):
                      "utilization": res.avg_utilization,
                      "dt_groups": dt_groups, "launches": launches,
                      **sim.stats}
+    # the node-sharded drain on a one-rank group over the card: the same
+    # placements, one lane and two collectives a drain iteration
+    jobs = wf.to_jobs(under_frac=0.1, seed=1)
+    ssim = ClusterSim(nodes(), engine="fused", shard=1, device=dev)
+    sync()
+    t0 = time.perf_counter()
+    sres = ssim.run(jobs, RetrySpec("ksplus"))
+    sync()
+    swall = time.perf_counter() - t0
+    if sres.placements != res.placements:
+        raise AssertionError(f"{len(jobs)} tasks: the shard=1 drain placed "
+                             f"otherwise than the unsharded drain")
+    rec["replay_shard1"] = {"tasks": len(jobs), "wall_s": swall,
+                            "placements": len(sres.placements),
+                            **ssim.stats}
     del wf, jobs
 
     small = scenarios.get("workload_replay", n_tasks=DIFF_TASKS, seed=0,
                           device=dev)
     carried = load_workflow_trace(trace_state(small), device="cpu")
     runs = {}
-    for name, engine, device, wf_, retry in (
-            ("fused", "fused", dev, small, RetrySpec("ksplus")),
-            ("packed", "packed", dev, small, RetrySpec("ksplus")),
-            ("legacy", "legacy", dev, small, ksplus_retry),
-            ("fused-cpu", "fused", "cpu", carried, RetrySpec("ksplus"))):
+    for name, engine, device, wf_, retry, shard in (
+            ("fused", "fused", dev, small, RetrySpec("ksplus"), None),
+            ("packed", "packed", dev, small, RetrySpec("ksplus"), None),
+            ("legacy", "legacy", dev, small, ksplus_retry, None),
+            ("fused-cpu", "fused", "cpu", carried, RetrySpec("ksplus"),
+             None),
+            ("fused-shard1", "fused", dev, small, RetrySpec("ksplus"), 1)):
         t0 = time.perf_counter()
-        runs[name] = ClusterSim(nodes(), engine=engine, device=device).run(
+        runs[name] = ClusterSim(nodes(), engine=engine, shard=shard,
+                                device=device).run(
             wf_.to_jobs(under_frac=0.2, seed=0), retry)
         runs[name + "_s"] = time.perf_counter() - t0
-    for name in ("packed", "legacy", "fused-cpu"):
+    _same_result(runs["packed"], runs["fused-shard1"],
+                 f"{DIFF_TASKS} tasks, packed vs fused shard=1")
+    for name in ("packed", "legacy", "fused-cpu", "fused-shard1"):
         _same_result(runs["fused"], runs[name], f"{DIFF_TASKS} tasks, fused "
                      f"vs {name}", ("placements", "retries", "unschedulable")
                      if name == "legacy" else RESULT_FIELDS)
@@ -1888,6 +1922,21 @@ def check_bwd_kernels(flash, ssd, err):
                        err, "ssd_bwd")
 
 
+def layout_of(model, opt, batch):
+    """Where a training step's tensors live: whether every parameter,
+    moment and batch array is a DTensor, and their meshes' shapes and
+    device types."""
+    from torch.distributed.tensor import DTensor
+    ts = list(model.parameters()) + list(opt["m"].values()) \
+        + list(opt["v"].values()) + list(batch.values())
+    meshes = {(tuple(t.device_mesh.shape), t.device_mesh.device_type)
+              for t in ts if isinstance(t, DTensor)}
+    return {"all_dtensor": all(isinstance(t, DTensor) for t in ts),
+            "meshes": sorted(meshes),
+            "placements": sorted({str(t.placements) for t in ts
+                                  if isinstance(t, DTensor)})}
+
+
 class TrainSteps:
     """While active, ``launch.train``'s ``make_train_step`` hands out steps
     that record each step's kernel launches (the four LM counters, read
@@ -1912,6 +1961,7 @@ class TrainSteps:
 
             def step(model, opt, batch, i):
                 before = counts()
+                self.layout = layout_of(model, opt, batch)
                 self.allocated_before = torch.cuda.memory_allocated()
                 self.args_bytes = tensor_bytes(model, opt, batch)
                 if i == self.profile_at:
@@ -2091,10 +2141,15 @@ def train_full(seq=2048, steps=8):
         raise AssertionError(f"train ran {len(rec.launches)} steps: {out}")
     if not all(math.isfinite(x) for x in out["losses"]):
         raise AssertionError(f"non-finite loss {out['losses']}")
+    if not rec.layout["all_dtensor"] \
+            or rec.layout["meshes"] != [((1, 1), "cuda")]:
+        raise AssertionError(f"train stepped off the (1, 1) CUDA mesh: "
+                             f"{rec.layout}")
     step_s = float(np.median(out["step_s"][1:]))
     prof = rec.profile
     prof.pop("result", None)
     return {"seq": seq, "batch": 1, "steps": steps, "losses": out["losses"],
+            "layout": rec.layout,
             "step_s": out["step_s"], "median_step_s": step_s,
             "tokens_per_s": seq / step_s,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -2160,7 +2215,10 @@ def train_fault_tolerance():
     from repro_torch.launch.train import train
     kw = dict(steps=8, seq=64, batch=2, ckpt_every=3, monitor=False)
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
-    full = train("zamba2-2.7b", **kw)
+    with TrainSteps() as rec:
+        full = train("zamba2-2.7b", **kw)
+    if not rec.layout["all_dtensor"]:
+        raise AssertionError(f"smoke training off the mesh: {rec.layout}")
     killed = train("zamba2-2.7b", ckpt_dir=TRAIN_CKPT, kill_at_step=5, **kw)
     resumed = train("zamba2-2.7b", ckpt_dir=TRAIN_CKPT, resume=True, **kw)
     shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
@@ -2170,7 +2228,7 @@ def train_fault_tolerance():
                              f"{killed['losses']}) vs uninterrupted "
                              f"{full['losses']}")
     return {"losses": full["losses"], "killed_at": killed["step"],
-            "resumed_from": 3}
+            "resumed_from": 3, "layout": rec.layout}
 
 
 def bwd_kernel_timings(launches, err):
@@ -2304,7 +2362,8 @@ def training(kernels, err, built):
     torch.cuda.empty_cache()
     full = train_full()
     prof = full["profile_last_step"]
-    log(f"phase 14: {ARCH} launch.train.train 1 x 2048, remat none: "
+    log(f"phase 14: {ARCH} launch.train.train 1 x 2048, remat none, on "
+        f"the local mesh {full['layout']}: "
         f"{full['median_step_s']:.4f} s per step (median after the first), "
         f"{full['tokens_per_s']:.1f} tokens/s, peak "
         f"{full['peak_gb']:.2f} GB; launches per step "
@@ -2891,7 +2950,8 @@ def one_card_cells(measured):
          serve9["prefill_memory"]),
         ("zamba2 train", ARCH, dataclasses.replace(zamba, remat="none"),
          ShapeCell("train_1x2048", "train", 2048, 1),
-         train14["median_step_s"], "phase 14 (d), median step",
+         train14["median_step_s"],
+         "phase 14 (d), median step on the card's (1, 1) mesh",
          train14["step_memory"]),
         ("olmoe prefill", OLMOE, get_config(OLMOE),
          ShapeCell("prefill_4x2048", "prefill", 2048, 4),
@@ -3257,8 +3317,14 @@ def main() -> int:
         f"{r['launches']['oom_probe']} oom_probe launch(es) for "
         f"{r['dt_groups']} dt group(s); release order holds, none "
         f"unschedulable")
+    sr = rec["replay_shard1"]
+    log(f"phase 12: the same replay with the node-sharded drain, shard=1 on "
+        f"a one-rank group: {sr['wall_s']:.3f} s, placements equal; "
+        f"{sr['drains']} drains, {sr['drain_iterations']} drain iterations, "
+        f"{sr['host_reads']} host reads, {sr['collectives']} collectives")
     log(f"phase 12: {DIFF_TASKS} tasks fused == packed == legacy == fused on "
-        f"the CPU; run_suite {rec['suite']['cases']} cases fused == packed; "
+        f"the CPU == fused shard=1; run_suite {rec['suite']['cases']} cases "
+        f"fused == packed; "
         f"heavy_tail card == cpu ({time.perf_counter() - t0:.1f} s) "
         + json.dumps(rec))
     # the kernel line's oom_probe: the cluster path, where it launches now;

@@ -26,6 +26,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from repro_torch.device import group_backend
+
 __all__ = ["HW", "fake_world", "make_mesh", "make_production_mesh",
            "make_local_mesh"]
 
@@ -93,12 +95,14 @@ def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
     return make_mesh(shape, axes)
 
 
-def make_local_mesh() -> DeviceMesh:
+def make_local_mesh(device_type: str = "cpu") -> DeviceMesh:
     """The world the process runs in as a ``(world, 1)`` ("data", "model")
-    mesh: a ``(1, 1)`` mesh of one process when no process group is up
-    (then a one-rank group over a local store is started)."""
+    mesh of ``device_type`` devices: a ``(1, 1)`` mesh of one process when
+    no process group is up (then a one-rank group over a local store is
+    started, whose backend reduces ``device_type`` tensors; the caller
+    destroys it, or makes the mesh inside ``device.process_world``)."""
     if not dist.is_initialized() and not getattr(_state, "fake_ok", False):
-        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
-                                world_size=1)
+        dist.init_process_group(group_backend(device_type),
+                                store=dist.HashStore(), rank=0, world_size=1)
     n = dist.get_world_size() if dist.is_initialized() else 1
-    return make_mesh((n, 1), ("data", "model"))
+    return make_mesh((n, 1), ("data", "model"), device_type)

@@ -143,14 +143,20 @@ def spec_for(axes: Sequence[Optional[str]], shape: Sequence[int], mesh,
 
 def placements_for(spec: Sequence[AxisName], mesh) -> List:
     """DTensor placements of ``spec`` on ``mesh``: ``Shard(d)`` on every
-    mesh dimension that tensor dimension ``d`` maps to (a tuple of names
-    shards major to minor, as JAX's), ``Replicate()`` on the others."""
+    mesh dimension of more than one device that tensor dimension ``d``
+    maps to (a tuple of names shards major to minor, as JAX's),
+    ``Replicate()`` on the others.  A mesh dimension of one device splits
+    nothing, and DTensor refuses to reshape a tensor dimension sharded even
+    over one device, so there the placement is ``Replicate()``: on a
+    ``(1, 1)`` mesh every tensor is replicated."""
     out: List = [Replicate()] * len(_names(mesh))
     for d, entry in enumerate(spec):
         if entry is None:
             continue
         for name in (entry,) if isinstance(entry, str) else entry:
-            out[_names(mesh).index(name)] = Shard(d)
+            i = _names(mesh).index(name)
+            if mesh.shape[i] > 1:
+                out[i] = Shard(d)
     return out
 
 

@@ -52,7 +52,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
@@ -246,12 +247,17 @@ def export_tree(cfg: ModelConfig, named: Dict[str, torch.Tensor]) -> Dict:
     """``named`` (``{port parameter name: tensor}``, e.g. the parameters or
     an AdamW moment) as the reference's tree of numpy arrays, blocks
     stacked over the scan axis: the inverse of :func:`import_tree`.  The
-    arrays are copies on the host."""
+    arrays are copies on the host; a DTensor's is the whole tensor,
+    gathered over its mesh (a collective: every rank of the mesh calls
+    this)."""
     out: Dict = {}
     stacks: Dict = {}
     for name, t in named.items():
         path, idx = _ref_path(cfg, name)
-        arr = t.detach().cpu().numpy()
+        t = t.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        arr = t.cpu().numpy()
         if not idx:
             _put(out, path, arr.copy())
             continue
@@ -266,8 +272,9 @@ def import_tree(cfg: ModelConfig, tree: Dict,
                 named: Dict[str, torch.Tensor]) -> None:
     """Copy the reference-layout ``tree`` (nested dicts of numpy arrays)
     into the tensors of ``named`` in place, unstacking the scan axis (and a
-    hybrid's ``(L/every, every)`` double stack).  Raises if a shape differs
-    or a leaf of the tree has no counterpart."""
+    hybrid's ``(L/every, every)`` double stack); a DTensor takes its own
+    shards of each whole array.  Raises if a shape differs or a leaf of the
+    tree has no counterpart."""
     seen = set()
     with torch.no_grad():
         for name, t in named.items():
@@ -279,7 +286,12 @@ def import_tree(cfg: ModelConfig, tree: Dict,
             if arr.shape != tuple(t.shape):
                 raise ValueError(f"{name}: reference {arr.shape} vs port "
                                  f"{tuple(t.shape)}")
-            t.copy_(torch.from_numpy(arr))
+            src = torch.from_numpy(arr)
+            if isinstance(t, DTensor):
+                src = distribute_tensor(src.to(t.to_local().device),
+                                        t.device_mesh, t.placements,
+                                        src_data_rank=None)
+            t.copy_(src)
             seen.add(path)
     missing = set(_leaf_paths(tree)) - seen
     if missing:

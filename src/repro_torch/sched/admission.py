@@ -65,10 +65,19 @@ order*, which is the eviction order every engine pins bitwise.  Node rows
 are positional (a leave splices, a join appends); callers keep their own
 stable-id ↔ row mapping.  Because the fused programs take ``caps`` and
 the resident-lane index per call, churn needs no device-state rebuild.
+
+``shard=n`` splits the drain's node axis over the ``n`` ranks of a
+``torch.distributed`` process group (:meth:`AdmissionState._drain_sharded`,
+the reference's ``shard_map`` over nodes): each rank runs the same replay,
+holds the residual block of its own nodes and takes part in two
+collective reductions per placement (three for ``select="headroom"``);
+the placement list is the same on every rank.
 """
 
 from __future__ import annotations
 
+import contextlib
+import weakref
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -76,13 +85,14 @@ import torch
 
 from repro_torch.analysis.contracts import record_dispatch
 from repro_torch.core.envelope import PAD_START, fits_column
-from repro_torch.device import resolve_device
+from repro_torch.device import process_world, resolve_device
 from repro_torch.obs import metrics as _met
 from repro_torch.obs import trace as _obs
 
 __all__ = ["AdmissionState"]
 
 WINDOW = 1e-9  # a resident counts inside [t0, t0 + dur + WINDOW)
+PAD_CAP = -1e30  # capacity of the padding rows of a sharded node axis
 
 
 def _alloc_chain(rs: torch.Tensor, rp: torch.Tensor,
@@ -130,14 +140,23 @@ class AdmissionState:
 
     ``use_dur=False`` selects the elastic planner's conservative
     count-forever residual (``usage_over`` with ``dur=None``).  The fused
-    backend runs on ``device`` (None means the card); ``shard`` (a drain
-    whose node axis is split over several devices) is not ported yet and
-    raises for more than one device.
+    backend runs on ``device`` (None means the card).
+
+    ``shard=n`` runs the drain node-sharded (:meth:`_drain_sharded`) over
+    a process group of ``n`` ranks, one per shard, as the reference needs
+    ``n`` devices; other group sizes raise :class:`ValueError`.  With no
+    group, ``shard=1`` starts a one-rank group over ``device`` for the
+    state's lifetime (:meth:`close`, or the end of a ``with`` block,
+    destroys it; a caller's group is never destroyed).  The node axis is
+    padded to a multiple of ``n`` with ``-1e30`` capacities and rank ``r``
+    owns nodes ``[r·Nl, (r+1)·Nl)``; node joins and leaves recompute the
+    blocks.
 
     :attr:`stats` counts ``drains``, the fused drain programs run
-    (``drain_dispatches``), their loop iterations (``drain_iterations``)
-    and the device-to-host reads of the fused backend (``host_reads``:
-    one per drain iteration, one per fused refresh).
+    (``drain_dispatches``), their loop iterations (``drain_iterations``),
+    the device-to-host reads of the fused backend (``host_reads``: one
+    per drain iteration, one per fused refresh) and the collective
+    reductions of a sharded drain (``collectives``).
     """
 
     # Max candidate lanes per drain program.  Deep backlogs routinely have
@@ -161,14 +180,11 @@ class AdmissionState:
             shard = int(shard)
             if shard < 1:
                 raise ValueError(f"shard must be >= 1, got {shard}")
-            if shard > 1:
-                raise NotImplementedError(
-                    "a drain sharded over several devices is not ported "
-                    "yet; use shard=None")
         self.shard = shard
         self.device = resolve_device(device) if backend == "fused" else None
         self.stats = {"drains": 0, "drain_dispatches": 0,
-                      "drain_iterations": 0, "host_reads": 0}
+                      "drain_iterations": 0, "host_reads": 0,
+                      "collectives": 0}
         self.backend = backend
         self.use_dur = bool(use_dur)
         self.tol = float(tol)
@@ -190,6 +206,50 @@ class AdmissionState:
         self.valid = np.zeros((N, 0), bool)
         self._now: Optional[float] = None
         self._dirty_dev = True  # device mirrors need a (re)upload
+        world = contextlib.ExitStack()
+        self._finalizer = weakref.finalize(self, world.close)
+        if shard is not None:
+            self._join_world(world)
+            self._reshard()
+
+    # ------------------------------------------------------- process group
+    def _join_world(self, world: contextlib.ExitStack):
+        """The process group of a sharded drain: the caller's, of exactly
+        ``shard`` ranks, or (``shard=1`` and none) a one-rank group held
+        by ``world`` until :meth:`close`."""
+        import torch.distributed as dist
+        if dist.is_initialized():
+            have = dist.get_world_size()
+            if have != self.shard:
+                raise ValueError(
+                    f"shard={self.shard} needs a process group of "
+                    f"{self.shard} ranks (one per shard), but the group "
+                    f"has {have}")
+        elif self.shard == 1:
+            world.enter_context(process_world(self.device))
+        else:
+            raise ValueError(
+                f"shard={self.shard} needs a process group of {self.shard} "
+                f"ranks (one per shard): initialise one with "
+                f"torch.distributed.init_process_group")
+        self._rank = dist.get_rank()
+
+    def _reshard(self):
+        """This rank's block of the node axis, padded to a multiple of
+        ``shard``: rows ``[lo, lo + nl)`` (rows past ``N`` are padding)."""
+        self._nl = -(-max(self.N, 1) // self.shard)
+        self._lo = self._rank * self._nl
+
+    def close(self) -> None:
+        """Destroy the one-rank process group this state started, if any;
+        a group the caller made is left as it is."""
+        self._finalizer()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
     # ------------------------------------------------------------- lane mgmt
     @property
@@ -266,6 +326,8 @@ class AdmissionState:
         self.fits = np.concatenate([self.fits, np.zeros((1, B), bool)])
         self.valid = np.concatenate([self.valid, np.zeros((1, B), bool)])
         self.minresid = np.concatenate([self.minresid, np.zeros((1, B))])
+        if self.shard:
+            self._reshard()
         return self.N - 1
 
     def remove_node(self, ni: int) -> List[int]:
@@ -276,6 +338,8 @@ class AdmissionState:
         self.fits = np.delete(self.fits, ni, axis=0)
         self.valid = np.delete(self.valid, ni, axis=0)
         self.minresid = np.delete(self.minresid, ni, axis=0)
+        if self.shard:
+            self._reshard()
         return evicted
 
     # ----------------------------------------------------------- invalidation
@@ -379,8 +443,12 @@ class AdmissionState:
         """The per-call operands of a fused program, in two uploads: the
         residents of node ``rows`` (``(N, R)`` index and validity, ``R``
         the longest resident list, at least 1) with the queued lanes, and
-        the float64 ``caps``, ``now`` and ``tol``."""
-        sel = [self.running[ni] for ni in rows]
+        the float64 ``caps``, ``now`` and ``tol``.  A row past the last
+        node is padding: no residents, capacity ``PAD_CAP``."""
+        rows = np.asarray(rows, np.int64)
+        real = rows < self.N
+        sel = [self.running[ni] if ok else []
+               for ni, ok in zip(rows.tolist(), real)]
         R = max(max((len(r) for r in sel), default=0), 1)
         N, Q = len(sel), len(lanes)
         ints = np.zeros((2 * N * R + Q,), np.int64)
@@ -391,9 +459,10 @@ class AdmissionState:
             run_valid[i, :len(run)] = 1
         ints[2 * N * R:] = lanes
         dints = torch.from_numpy(ints).to(self.device)
-        flts = torch.from_numpy(np.concatenate(
-            [self.caps[np.asarray(rows, np.int64)], [now, self.tol]])
-        ).to(self.device)
+        caps = np.full(rows.shape, PAD_CAP)
+        caps[real] = self.caps[rows[real]]
+        flts = torch.from_numpy(np.concatenate([caps, [now, self.tol]])
+                                ).to(self.device)
         return (flts[:N], dints[:N * R].view(N, R),
                 dints[N * R:2 * N * R].view(N, R) != 0, dints[2 * N * R:],
                 flts[N], flts[N + 1])
@@ -479,19 +548,20 @@ class AdmissionState:
             return []
         if self.backend == "numpy":
             return self._drain_host(now, lanes, select)
+        program = self._drain_sharded if self.shard else self._drain_fused
         placed_all: List[tuple] = []
         remaining = lanes
         while True:
             if len(remaining) <= self.DRAIN_CAP:
                 # Narrow queue: the whole thing goes into the program.
-                placed_all.extend(self._drain_fused(now, remaining, select))
+                placed_all.extend(program(now, remaining, select))
                 break
             idx = np.nonzero(
                 self.columns(now, remaining).any(axis=0))[0]
             if idx.size == 0:
                 break
             cand = [remaining[i] for i in idx[:self.DRAIN_CAP]]
-            placed = self._drain_fused(now, cand, select)
+            placed = program(now, cand, select)
             placed_all.extend(placed)
             if idx.size <= self.DRAIN_CAP or not placed:
                 # A single chunk held every candidate — the program's own
@@ -578,8 +648,8 @@ class AdmissionState:
         # refresh computes for that resident afterwards, bitwise.
         prel = tabs - now_t
         prelc = prel.clamp_min(0.0)[None, :].expand(N, -1)
-        nrange = torch.arange(N, device=dev)
-        qrange = torch.arange(Q, device=dev)
+        nrange = torch.arange(N, dtype=torch.int64, device=dev)
+        qrange = torch.arange(Q, dtype=torch.int64, device=dev)
         spare_q = torch.full((), Q, dtype=torch.int64, device=dev)
         spare_n = torch.full((), N, dtype=torch.int64, device=dev)
         active = torch.ones((Q,), dtype=torch.bool, device=dev)
@@ -630,6 +700,13 @@ class AdmissionState:
             self.stats["host_reads"] += 1
             if host[0]:
                 break
+        return self._book(now, out, host, Q)
+
+    def _book(self, now: float, out: torch.Tensor, host: np.ndarray,
+              Q: int) -> List[tuple]:
+        """A drain program's placements (``out`` on the device, ``host``
+        its last read: done flag, count, lanes, nodes) into the resident
+        ``admit_t`` buffer and the host bookkeeping."""
         n = int(host[1])
         # Admission times of the placed lanes, scattered in place; unused
         # slots hold lane B, the spare slot of the buffer.  (Slot Q of the
@@ -649,3 +726,101 @@ class AdmissionState:
             self.valid[ni] &= ~self.fits[ni]
             placed.append((lane, ni))
         return placed
+
+    def _drain_sharded(self, now: float, lanes: List[int],
+                       select: str) -> List[tuple]:
+        """The node-sharded drain program over ``lanes`` (queue order):
+        the reference's ``_drain_kernel_sharded`` over this process group.
+
+        This rank computes the base residuals of its own block of nodes
+        only, ``(Nl, Q, G)`` float64 (padding rows never fit), then each
+        iteration:
+
+        1. computes its local fits,
+        2. all-reduces the per-lane "any rank fits" (MAX over int32),
+        3. takes the first fitting lane in queue order and all-reduces the
+           winning global node index (MIN over the indices of the nodes it
+           fits; for ``select="headroom"`` first the MAX of the head-room,
+           then the MIN of the indices that reach it: first on ties, as
+           ``np.argmax``),
+        4. the owning rank subtracts the lane's windowed envelope from its
+           node's rows,
+        5. the placement list (the same on every rank) grows by one,
+        6. one host read: the done flag, the count and the list.
+
+        One placement per iteration: the selection is globally ordered,
+        and each node sees the subtractions of the one-device program in
+        the same order, so the decisions are the unsharded drain's.
+        """
+        import torch.distributed as dist
+        if self._dirty_dev:
+            self._dev_sync()
+        Q, G, B = len(lanes), self.G, self.B
+        nl, lo = self._nl, self._lo
+        dev = self.device
+        caps, run_idx, run_valid, q_idx, now_t, tol = self._operands(
+            range(lo, lo + nl), lanes, now)
+        starts, peaks, dur = self._dstarts, self._dpeaks, self._ddur
+        tabs = (now_t + self._dgrid[q_idx]).reshape(-1)    # (Q*G,) absolute
+        resid = _residual(starts, peaks, self._dadmit, dur, caps, run_idx,
+                          run_valid, tabs, self.use_dur).reshape(nl, Q, G)
+        need_q = self._dneed[q_idx]
+        if select == "headroom":
+            peak_q = peaks[q_idx].amax(dim=1)
+        # as in _drain_fused: the placed lane's rel kept as now + grid - now
+        prel = tabs - now_t
+        prelc = prel.clamp_min(0.0)[None, :]
+        gidx = torch.arange(lo, lo + nl, dtype=torch.int64, device=dev)
+        node_ok = gidx < self.N
+        lrange = gidx - lo
+        qrange = torch.arange(Q, dtype=torch.int64, device=dev)
+        big = torch.full((), nl * self.shard, dtype=torch.int64, device=dev)
+        spare_q = torch.full((), Q, dtype=torch.int64, device=dev)
+        active = torch.ones((Q,), dtype=torch.bool, device=dev)
+        out = torch.full((2, Q + 1), B, dtype=torch.int64, device=dev)
+        count = torch.zeros((), dtype=torch.int64, device=dev)
+        self.stats["drain_dispatches"] += 1
+        record_dispatch("admission.drain")
+        while True:
+            self.stats["drain_iterations"] += 1
+            fits = (need_q[None] <= resid + tol).all(dim=-1) \
+                & active[None] & node_ok[:, None]
+            anyfit = fits.any(dim=0).to(torch.int32)          # (Q,)
+            dist.all_reduce(anyfit, op=dist.ReduceOp.MAX)
+            anyfit = anyfit > 0
+            done = ~anyfit.any()
+            qsel = anyfit.to(torch.int8).argmax()
+            colf = fits[:, qsel]
+            if select == "first":
+                nsel = torch.where(colf, gidx, big).amin()
+            else:
+                head = torch.where(colf, resid[:, qsel].amin(dim=-1)
+                                   - peak_q[qsel], -torch.inf)
+                best = head.amax()
+                dist.all_reduce(best, op=dist.ReduceOp.MAX)
+                self.stats["collectives"] += 1
+                nsel = torch.where(colf & (head == best), gidx, big).amin()
+            dist.all_reduce(nsel, op=dist.ReduceOp.MIN)
+            self.stats["collectives"] += 2
+            place = ~done
+            slot = torch.where(place, count, spare_q)
+            gl = q_idx[qsel]
+            out[0].index_put_((slot,), gl)
+            out[1].index_put_((slot,), nsel)
+            count = count + place.to(torch.int64)
+            pal = _alloc_chain(starts[gl][None], peaks[gl][None], prelc)
+            if self.use_dur:
+                pal = torch.where((prel[None, :] >= 0.0)
+                                  & (prel[None, :] < dur[gl] + WINDOW),
+                                  pal, 0.0)
+            own = place & (lrange == nsel - lo)               # (Nl,)
+            resid = resid - torch.where(own[:, None, None],
+                                        pal.reshape(1, Q, G), 0.0)
+            active = active & ~(place & (qrange == qsel))
+            # the one host read of this iteration
+            host = torch.cat([torch.stack([done.to(torch.int64), count]),
+                              out[:, :Q].reshape(-1)]).cpu().numpy()
+            self.stats["host_reads"] += 1
+            if host[0]:
+                break
+        return self._book(now, out, host, Q)

@@ -131,7 +131,7 @@ from repro_torch.core.envelope import (
 )
 from repro_torch.core.fleet import pack_traces
 from repro_torch.core.retry import apply_retry_spec
-from repro_torch.device import resolve_device
+from repro_torch.device import process_world, resolve_device
 from repro_torch.kernels.wastage import ops
 from repro_torch.obs import metrics as _met
 from repro_torch.obs import trace as _obs
@@ -399,7 +399,9 @@ class ClusterSim:
     :attr:`stats` holds the last :meth:`run`'s counts: ``probe_groups`` (dt
     groups probed, one launch each on the card; per offset candidate) and,
     for the fused engine, the admission state's ``drains``,
-    ``drain_dispatches``, ``drain_iterations`` and ``host_reads``.
+    ``drain_dispatches``, ``drain_iterations``, ``host_reads`` and
+    ``collectives`` (those of a sharded drain, ``shard=n``: see
+    :class:`repro_torch.sched.admission.AdmissionState`).
     """
 
     def __init__(self, nodes: List[Node], max_attempts: int = 20,
@@ -417,9 +419,10 @@ class ClusterSim:
         # Fused-engine drain mode: "device" runs the whole greedy drain as
         # the device program of AdmissionState.drain; "host" keeps the
         # per-placement columns/argmax loop as the decision oracle.
-        # ``shard`` (the drain's node axis over several devices) is not
-        # ported yet: more than one raises.  Both are ignored by the packed
-        # and legacy engines.
+        # ``shard`` splits the drain's node axis over the ranks of a
+        # process group of that size (every rank runs the same replay;
+        # ``shard=1`` without a group runs over a one-rank group held for
+        # the replay).  Both are ignored by the packed and legacy engines.
         self.drain = drain
         self.shard = shard
         self.device = resolve_device(device)
@@ -498,6 +501,13 @@ class ClusterSim:
         faults = _norm_faults(faults)
         self._validate_submit(jobs)
         self.stats = {}
+        if self.shard == 1 and self.engine == "fused":
+            with process_world(self.device):
+                return self._run_engines(jobs, retry, offsets, faults)
+        return self._run_engines(jobs, retry, offsets, faults)
+
+    def _run_engines(self, jobs: List[Job], retry, offsets, faults
+                     ) -> Union[ClusterResult, List[ClusterResult]]:
         if self.engine == "legacy":
             if offsets is not None:
                 raise ValueError("offset sweeps require a batched engine")

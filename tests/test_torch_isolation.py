@@ -68,6 +68,16 @@ def test_no_jax_or_reference_imports(path):
         assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
 
 
+def test_lint_and_drain_modules_are_covered():
+    """The import check above reads the lint's modules too."""
+    port = ROOT / "src" / "repro_torch"
+    names = {p.relative_to(port).as_posix() for p in FILES
+             if p.is_relative_to(port)}
+    assert {"analysis/lint.py", "analysis/rules.py", "analysis/model.py",
+            "analysis/__main__.py", "sched/admission.py",
+            "launch/train.py"} <= names
+
+
 ENTRY_POINTS = {
     "bucket_traces": lambda: bucket_traces([np.ones(4)]),
     "simulate_fleet": lambda: simulate_fleet(
@@ -98,6 +108,8 @@ ENTRY_POINTS = {
         "heavy_tail", seed=0, train_frac=0.5, methods=["default"]),
     "sched.ClusterSim": lambda: ClusterSim([Node(0, 8.0)]),
     "sched.AdmissionState": lambda: AdmissionState([1.0], K=1, G=4),
+    "sched.AdmissionState(shard=1)": lambda: AdmissionState(
+        [1.0], K=1, G=4, shard=1),
     "sched.ElasticPlanner": lambda: ElasticPlanner(backend="fused"),
     "sched.HBMFootprintModel": lambda: HBMFootprintModel(),
     "serve.PredictionServer": lambda: PredictionServer(),

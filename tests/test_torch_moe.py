@@ -183,7 +183,7 @@ def test_bf16_matches_reference():
                                float(jaux["moe_aux_loss"]), rtol=1e-5)
 
 
-def test_mesh_waits_for_a11d():
+def test_n_shards_zero_takes_the_context_batch_shards():
     """A11d landed: the mesh comes from the partitioning context (no
     ``mesh=`` argument, no ``NotImplementedError``) and ``n_shards <= 0``
     means the context's batch shards, as in the reference: 1 outside a

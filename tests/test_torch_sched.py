@@ -185,11 +185,70 @@ def test_drain_matches_reference(backend, select, n):
                            torch.from_numpy(got.admit_t))
 
 
-def test_sharded_drain_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
+def test_sharded_drain_needs_a_group_of_shard_ranks():
+    """``shard=n`` needs a process group of ``n`` ranks, as the reference
+    needs ``n`` devices; ``shard=1`` without one starts a one-rank group
+    that ``close`` destroys, and never a caller's."""
+    import torch.distributed as dist
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
         AdmissionState([1.0, 2.0], K=1, G=4, shard=2, device=CPU)
     with pytest.raises(ValueError, match="requires backend='fused'"):
         AdmissionState([1.0], K=1, G=4, backend="numpy", shard=1)
+    assert not dist.is_initialized()
+    with AdmissionState([1.0, 2.0], K=1, G=4, shard=1, device=CPU) as adm:
+        assert dist.is_initialized() and dist.get_world_size() == 1
+        with pytest.raises(ValueError, match="but the group has 1"):
+            AdmissionState([1.0, 2.0], K=1, G=4, shard=2, device=CPU)
+        assert adm.stats["collectives"] == 0
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        AdmissionState([1.0], K=1, G=4, shard=1, device=CPU).close()
+        assert dist.is_initialized()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("n", [40, 300])
+@pytest.mark.parametrize("select", ["first", "headroom"])
+def test_one_shard_drain_equals_the_unsharded(select, n):
+    """``shard=1`` in one process: the node-sharded program (one placement
+    and two or three collectives an iteration) places what the unsharded
+    drain and the reference's numpy drain place, decision for decision,
+    node churn between drains and a queue past ``DRAIN_CAP`` included."""
+    use_dur = select == "first"
+    caps = (48.0, 64.0, 32.0, 96.0) if n > 100 else (32.0, 48.0, 40.0)
+    lanes = _lanes(np.random.default_rng(n + 7), n, 3, 16, use_dur)
+    ref = RAdmission(caps, K=3, G=16, backend="numpy", use_dur=use_dur)
+    plain = AdmissionState(caps, K=3, G=16, use_dur=use_dur, device=CPU)
+    with AdmissionState(caps, K=3, G=16, use_dur=use_dur, shard=1,
+                        device=CPU) as got:
+        placed = 0
+        cut = n - 20 if n > 100 else n // 2  # 277 lanes: the pre-filter
+        steps = ((0.0, [0, 1, 2]), (5.0, range(3, cut)), (9.0, range(cut, n)))
+        for adm in (ref, plain, got):
+            adm.add_lanes(*lanes)
+        for i, (now, queue) in enumerate(steps):
+            if i == 2:  # a leave, then a join, before the last drain
+                states = (ref, plain, got)
+                evicted = [adm.remove_node(1) for adm in states]
+                assert evicted[1] == evicted[2] == evicted[0]
+                for adm in states:
+                    adm.add_node(56.0)
+            want = ref.drain(now, list(queue), select=select)
+            assert plain.drain(now, list(queue), select=select) == want
+            assert got.drain(now, list(queue), select=select) == want
+            assert got.running == ref.running
+            np.testing.assert_array_equal(got.admit_t, ref.admit_t)
+            placed += len(want)
+        assert placed > 6
+        st = got.stats
+        assert st["drain_iterations"] == placed + st["drain_dispatches"]
+        assert st["collectives"] == (2 if select == "first" else 3) \
+            * st["drain_iterations"]
+        assert torch.equal(got._dadmit[:got.B],
+                           torch.from_numpy(got.admit_t))
 
 
 # ----------------------------------------------------------------- cluster
@@ -388,7 +447,7 @@ def test_submit_validation_same_errors():
     cyc[0].parents, cyc[2].parents = (2,), (0,)
     with pytest.raises(ValueError, match="cycle"):
         ClusterSim(_nodes(), device=CPU).run(cyc, RetrySpec("ksplus"))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="process group of 2 ranks"):
         ClusterSim(_nodes(), device=CPU, shard=2).run(
             _multiseg(Job, AllocationPlan, n_jobs=3), RetrySpec("ksplus"))
 
