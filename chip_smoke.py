@@ -8,7 +8,7 @@ Phases (any failure exits non-zero; nothing is caught):
    the torch / CUDA versions;
 2. build: ``nvcc`` builds every kernel source from ``src/``, one process
    per source, all started together (seconds); this phase reports the
-   wastage kernels;
+   wastage and the admission kernels' registers and spills;
 3. kernel parity on the tests' sweeps: ``oom_probe`` and ``wastage_eval``
    on CUDA tensors against their plain PyTorch versions on the same
    tensors (``viol`` exact; floats rtol 1e-4 / atol 1e-2, the reduction
@@ -62,19 +62,35 @@ Phases (any failure exits non-zero; nothing is caught):
    then each LM kernel is timed at the 4 x 2048 shapes beside its plain
    version, its bound (max of bf16 FLOPs at 989 TFLOP/s and bytes at
    3.35 TB/s) and, for attention, ``scaled_dot_product_attention``;
-12. cluster replay at the reference benchmark's full size: the
+12. cluster replay at the reference benchmark's full size.  First the
+   admission kernels against their plain versions on the tests' sweep
+   (N in {1, 3, 4, 9} x Q in {1, 17, 256, 257}, and N = 64 x Q = 256;
+   both residual kinds, both node rules): ``admit_drain``'s vector
+   (count, iterations, lanes, nodes) and ``admit_t`` exact,
+   ``admit_columns``' fits exact and minimum residuals within 1e-12
+   relative.  Then the
    ``workload_replay`` scenario (layered random DAG, 4 task families)
    synthesized on the card at 8192 tasks (seed 1), timed, and synthesized
    again to check it is bitwise the same; then replayed by
    ``ClusterSim(engine="fused")`` on four nodes (48, 64, 32, 96 GB) with
    ``RetrySpec("ksplus")``: release order against the DAG, no
    unschedulable job, exactly one ``oom_probe`` launch per dt group (the
-   attempt-1 probe) and no other wastage launch; wall seconds, drains,
-   drain iterations and host reads, retries.  The same replay again with
+   attempt-1 probe) and no other wastage launch, one ``admit_drain``
+   launch per drain program and host reads = drain programs + column
+   refreshes; wall seconds, drains, drain iterations and host reads,
+   retries.  The same replay again with
    the node-sharded drain, ``shard=1`` on a one-rank process group over
    the card (two all-reduces a drain iteration): placements equal to the
    unsharded drain's; wall seconds, drains, iterations, host reads and
-   collectives.  The same scenario at 400
+   collectives.  The reference's two admission benchmarks
+   (``benchmarks/run.py``) through the port's ``AdmissionState`` at their
+   sizes and seeds: ``bench_admission``'s script (10,000 lanes, K = 4,
+   G = 64, four loaded nodes, 3 events of up to 12 admissions, each
+   through a column refresh over the 9,968-deep queue: ``admit_columns``)
+   and ``bench_drain``'s protocol (64 lanes drained at 0, 10, 40 and 90
+   s: one ``admit_drain`` a drain), each on the card equal to the fused
+   state on the CPU and to the numpy backend, launches counted as in the
+   replay.  The same scenario at 400
    tasks (seed 0) through ``fused`` and ``packed`` on the card and
    ``legacy``: placements, retries and unschedulable identical, the
    fused engine equal to itself on the CPU over the carried trace, and
@@ -85,8 +101,11 @@ Phases (any failure exits non-zero; nothing is caught):
    ``packed`` with equal placements, evictions, starved, doomed and
    retries.  ``evaluate_workflow("heavy_tail")`` on the card against the
    same trace carried to the CPU (retries and failures exact, GB·s rtol
-   1e-4).  Last, ``oom_probe`` at the replay's probe table against its
-   plain version, and timed there;
+   1e-4).  Then ``oom_probe`` at the replay's probe table against its
+   plain version, and timed there; last, the 8 largest drains of the
+   replay and the 8 largest column refreshes of ``bench_admission``'s
+   script (copied when they ran), and the protocol's drains, held against
+   the plain versions; the first two sets timed beside their bound (float64 at 34 TFLOP/s, bytes at 3.35 TB/s);
 13. the prediction service (``repro_torch.serve``) on the card:
    (a) ``run_saturation()`` at its defaults (8 tenants, 2048 requests,
    2000 req/s open-loop, seed 0): batched plans bitwise equal to
@@ -227,6 +246,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12         # H100 SXM float32, outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
+F64_OPS_PER_S = 34e12         # H100 SXM float64 outside the tensor cores
+MINRESID_RTOL = 1e-12         # admit_columns vs plain: the residents' sum
+                              # order only (the reference tests' tolerance)
 RTOL, ATOL = 1e-4, 1e-2       # kernel vs plain: reduction order only
 ENGINE_RTOL = 1e-4            # fleet_engine vs plain_engine wastage
 # kernel vs plain, (rtol, atol) by dtype: the reference tests' tolerances
@@ -241,6 +263,8 @@ SOURCES = {"oom_probe": WASTAGE, "wastage_eval": WASTAGE,
                "flash_attention.cu"}
 SOURCES.update(ssd_bwd=SOURCES["ssd"],
                flash_attention_bwd=SOURCES["flash_attention"])
+ADMISSION = "src/repro_torch/kernels/admission/csrc/admission.cu"
+SOURCES.update(admit_columns=ADMISSION, admit_drain=ADMISSION)
 # The backward kernels have no Pallas counterpart: the reference trains
 # through the XLA forms of the two layers and JAX's autodiff of them.
 REPLACES = {"oom_probe": "src/repro/kernels/wastage/kernel.py:67",
@@ -252,7 +276,10 @@ REPLACES = {"oom_probe": "src/repro/kernels/wastage/kernel.py:67",
             "flash_attention":
                 "src/repro/kernels/flash_attention/kernel.py:33",
             "ssd_bwd": "src/repro/models/mamba2.py:30",
-            "flash_attention_bwd": "src/repro/models/attention.py:92"}
+            "flash_attention_bwd": "src/repro/models/attention.py:92",
+            # the reference's jitted admission programs (XLA, not Pallas)
+            "admit_columns": "src/repro/sched/admission.py:100",
+            "admit_drain": "src/repro/sched/admission.py:166"}
 KW = dict(seed=0, train_frac=0.5, k=4, machine_memory=128.0)  # the cells
 ARCH = "zamba2-2.7b"
 SERVE_BATCHES = ((4, 2048), (3, 1000))  # (requests, prompt tokens)
@@ -917,9 +944,9 @@ def _short(mangled):
         n = re.match(r"\d+", rest).group()
         name, rest = rest[len(n):len(n) + int(n)], rest[len(n) + int(n):]
     if rest.startswith("I"):
-        args = re.match(r"I((?:Li-?\d+E)+)E", rest)
+        args = re.match(r"I((?:L[ib]-?\d+E)+)E", rest)
         if args:
-            name += "<" + ",".join(re.findall(r"Li(-?\d+)E",
+            name += "<" + ",".join(re.findall(r"L[ib](-?\d+)E",
                                               args.group(1))) + ">"
     return name
 
@@ -1302,11 +1329,341 @@ def _same_result(a, b, what, fields=RESULT_FIELDS):
                                rtol=1e-6, err_msg=what)
 
 
+# the admission kernels (phase 12): the tests' sweep of
+# tests/test_torch_admission_kernel.py, drawn the same way
+ADMIT_SWEEP = tuple((N, Q) for N in (1, 3, 4, 9) for Q in (1, 17, 256, 257)) \
+    + ((65, 256), (130, 257))   # past one 64-bit word of nodes
+ADMIT_KEEP = 8       # drains (and refreshes) of the replay kept for checks
+
+
+def admission_case(seed, N, Q, masked, K=3, G=16, now=50.0, tol=1e-9):
+    """One drain's operands as numpy: residents (0-3 a node) admitted
+    before ``now``, a random queue of ``Q`` lanes and two spare lanes."""
+    from repro_torch.core.envelope import PAD_START, alloc_at_packed
+    rng = np.random.default_rng(seed)
+    per = rng.integers(0, 4, N)
+    B = int(per.sum()) + Q + 2
+    starts = np.full((B, K), PAD_START)
+    peaks = np.zeros((B, K))
+    grid = np.linspace(0.0, rng.uniform(30, 120, B), G, axis=1)
+    for i in range(B):
+        k = int(rng.integers(1, K + 1))
+        starts[i, :k] = np.sort(np.concatenate(
+            [[0.0], rng.uniform(1.0, 60.0, k - 1)]))
+        peaks[i, :k] = np.sort(rng.uniform(2.0, 20.0, k))
+        peaks[i, k:] = peaks[i, k - 1]
+    need = alloc_at_packed(starts, peaks, grid)
+    dur = rng.uniform(20.0, 100.0, B) if masked else np.full(B, np.inf)
+    order = rng.permutation(B)
+    R = max(int(per.max()), 1)
+    run_idx = np.zeros((N, R), np.int64)
+    run_valid = np.zeros((N, R), np.int64)
+    at = 0
+    for n, r in enumerate(per):
+        run_idx[n, :r] = order[at:at + r]
+        run_valid[n, :r] = 1
+        at += r
+    admit_t = np.zeros(B + 1)
+    admit_t[order[:at]] = now - rng.uniform(0.0, 80.0, at)
+    return (starts, peaks, admit_t, dur, need, grid,
+            rng.uniform(20.0, 80.0, N), run_idx, run_valid,
+            order[at:at + Q].astype(np.int64), np.float64(now),
+            np.float64(tol))
+
+
+def on_device(operands, device):
+    """Fresh contiguous copies of numpy or tensor operands on ``device``."""
+    return tuple((x if isinstance(x, torch.Tensor)
+                  else torch.as_tensor(np.asarray(x))).to(device)
+                 .contiguous().clone() for x in operands)
+
+
+def check_drain(operands, masked, select, err, device, what):
+    """``admit_drain`` against ``plain_drain`` on fresh copies of
+    ``operands`` on ``device``: the vector (count, iterations, lanes,
+    nodes) and ``admit_t`` exact.  Returns the vector."""
+    from repro_torch.kernels.admission import ops as aops
+    from repro_torch.kernels.admission import ref as aref
+    kern, plain = on_device(operands, device), on_device(operands, device)
+    vec, _ = aops.admit_drain(*kern, masked, select)
+    want = aref.plain_drain(*plain, masked, select)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    if not torch.equal(vec, want):
+        raise AssertionError(f"admit_drain != plain_drain on {what} "
+                             f"({select}, masked {masked})")
+    if not torch.equal(kern[2], plain[2]):
+        raise AssertionError(f"admit_drain's admit_t differs on {what}")
+    return vec
+
+
+def check_columns(operands, masked, err, device, what):
+    """``admit_columns`` against ``plain_columns``: fits exact, minimum
+    residuals within ``MINRESID_RTOL``."""
+    from repro_torch.kernels.admission import ops as aops
+    from repro_torch.kernels.admission import ref as aref
+    kern, plain = on_device(operands, device), on_device(operands, device)
+    got = aops.admit_columns(*kern, masked)
+    want = aref.plain_columns(*plain, masked)
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError(f"admit_columns fits differ on {what}")
+    torch.testing.assert_close(got[1], want[1], rtol=MINRESID_RTOL, atol=0,
+                               msg=f"admit_columns on {what}")
+    err["admit_columns"] = max(err["admit_columns"],
+                               float((got[1] - want[1]).abs().max()))
+
+
+def admission_sweep(err, device):
+    """Phase 12's first step: the admission kernels on the tests' sweep,
+    both rules, both residual kinds; returns the number of drains held."""
+    n = 0
+    for masked in (True, False):
+        for N, Q in ADMIT_SWEEP:
+            case = admission_case(N * 1000 + Q, N, Q, masked)
+            check_columns(case, masked, err, device, f"sweep N={N} Q={Q}")
+            for select in ("first", "headroom"):
+                check_drain(case, masked, select, err, device,
+                            f"sweep N={N} Q={Q}")
+                n += 1
+    return n
+
+
+class AdmissionCalls:
+    """While active, records the (N, Q, R) of every ``admit_drain`` and
+    ``admit_columns`` call of the main path and keeps copies of the
+    operands of the ``keep`` largest of each (by N * Q * R, copied before
+    the call), for the checks and timings after the run.  It only
+    records: the launches and their counts stay the wrappers' own."""
+
+    NAMES = ("admit_drain", "admit_columns")
+
+    def __init__(self, keep=ADMIT_KEEP):
+        from repro_torch.kernels.admission import ops as aops
+        self.aops, self.keep = aops, keep
+        self.shapes = {n: [] for n in self.NAMES}
+        self.kept = {n: [] for n in self.NAMES}
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.aops, n) for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(self.aops, n, self._recorded(n))
+        return self
+
+    def _recorded(self, name):
+        orig, kept, shapes = self.orig[name], self.kept[name], \
+            self.shapes[name]
+
+        def recorded(*args):
+            (N, R), Q = args[7].shape, args[9].shape[0]
+            shapes.append((N, Q, R))
+            size = N * Q * R
+            if len(kept) < self.keep or size > kept[-1][0]:
+                kept.append((size, tuple(x.clone() for x in args[:12]),
+                             args[12:]))
+                kept.sort(key=lambda e: -e[0])
+                del kept[self.keep:]
+            return orig(*args)
+        return recorded
+
+    def __exit__(self, *exc):
+        for n in self.NAMES:
+            setattr(self.aops, n, self.orig[n])
+
+    def summary(self):
+        out = {}
+        for n in self.NAMES:
+            sh = np.array(self.shapes[n] or [(0, 0, 0)])
+            out[n] = {"calls": len(self.shapes[n]),
+                      "max_q": int(sh[:, 1].max()),
+                      "mean_q": float(sh[:, 1].mean()),
+                      "max_r": int(sh[:, 2].max()),
+                      "mean_r": float(sh[:, 2].mean())}
+        return out
+
+
+def admission_work(operands, masked, vec=None):
+    """``(bytes, float64 operations)`` an admission call needs on these
+    inputs: each distinct resident's plan and times, each queued lane's
+    need and grid (and plan, for the drain), the node operands read once;
+    the output written once.  Operations count the residual over the
+    real residents and, for a drain (``vec`` given), its iterations'
+    compares and the placed envelopes' subtraction."""
+    (starts, _, _, _, _, grid, caps, run_idx, run_valid, q_idx, _,
+     _) = operands
+    K, G = starts.shape[1], grid.shape[1]
+    N, Q = caps.numel(), q_idx.numel()
+    real = run_valid != 0
+    residents = int(run_idx[real].unique().numel())
+    per_lane = (2 * K + 1 + int(masked)) * 8
+    nbytes = (residents * per_lane + N * 8 + 2 * run_idx.numel() * 8
+              + Q * (2 * G * 8 + 8) + 16)
+    nops = int(real.sum()) * Q * G * (K + 2 + 3 * int(masked)) \
+        + N * Q * G * 3
+    if vec is None:
+        return nbytes + 2 * N * Q * 8, nops
+    count, iterations = int(vec[0]), int(vec[1])
+    nbytes += Q * (2 * K + int(masked)) * 8 + (2 + 3 * Q) * 8
+    nops += iterations * N * Q * G * 2 \
+        + count * Q * G * (K + 3 + 3 * int(masked))
+    return nbytes, nops
+
+
+# the reference's admission benchmarks (benchmarks/run.py), driven through
+# the port's AdmissionState with their sizes and seeds
+SCRIPT_LANES = 10_000          # bench_admission: B
+SCRIPT_EVENTS = (3, 12)        # its --full events, admissions an event
+PROTOCOL_LANES = 64            # bench_drain's dispatch accounting
+PROTOCOL_TIMES = (0.0, 10.0, 40.0, 90.0)
+
+
+def _bench_lanes(rng, B, K, G, peak_hi, est):
+    """``bench_admission`` / ``bench_drain``'s lane draw: ``(starts,
+    peaks, need, grid)`` of ``B`` step plans over ``est``-long grids."""
+    from repro_torch.core.envelope import PAD_START, alloc_at_packed
+    starts = np.full((B, K), PAD_START)
+    peaks = np.zeros((B, K))
+    grid = np.linspace(0.0, est, G, axis=1)
+    for i in range(B):
+        k = int(rng.integers(1, K + 1))
+        starts[i, :k] = np.sort(np.concatenate(
+            [[0.0], rng.uniform(1, 60, k - 1)]))
+        peaks[i, :k] = np.sort(rng.uniform(2, peak_hi, k))
+        peaks[i, k:] = peaks[i, k - 1]
+    return starts, peaks, alloc_at_packed(starts, peaks, grid), grid
+
+
+def admission_script(device, backend="fused"):
+    """``bench_admission``'s script, the per-event hot path of the fused
+    ``ClusterSim`` engine: ``SCRIPT_LANES`` lanes (K = 4, G = 64,
+    ``use_dur``) on four nodes of 48 / 64 / 32 / 96 GB, each loaded with 8
+    residents at 0.0, a warm-up ``columns`` over the whole queue, then
+    ``SCRIPT_EVENTS`` events 7 s apart: each advances the clock and admits
+    greedily through ``columns`` (one refresh of the stale entries over
+    the 9,968-deep queue) and ``place``.  Returns the placements, the
+    admission stats and the seconds after the warm-up."""
+    from repro_torch.sched.admission import AdmissionState
+    caps, K, G, per_node = (48.0, 64.0, 32.0, 96.0), 4, 64, 8
+    rng = np.random.default_rng(0)
+    adm = AdmissionState(caps, K=K, G=G, backend=backend, use_dur=True,
+                         device=device if backend == "fused" else None)
+    est = rng.uniform(30, 120, SCRIPT_LANES)
+    adm.add_lanes(*_bench_lanes(rng, SCRIPT_LANES, K, G, 12, est), dur=est)
+    lane = 0
+    for ni in range(len(caps)):
+        for _ in range(per_node):
+            adm.place(ni, lane, 0.0)
+            lane += 1
+    queue = list(range(lane, SCRIPT_LANES))
+    adm.columns(0.0, queue)
+    placements = []
+    t0 = time.perf_counter()
+    now = 0.0
+    events, admits = SCRIPT_EVENTS
+    for _ in range(events):
+        now += 7.0
+        adm.sync_now(now)
+        for _ in range(admits):
+            M = adm.columns(now, queue)
+            anyfit = M.any(axis=0)
+            if not anyfit.any():
+                break
+            col = int(np.argmax(anyfit))
+            ni = int(np.argmax(M[:, col]))
+            ji = queue[col]
+            queue.remove(ji)
+            adm.place(ni, ji, now)
+            placements.append((now, ni, ji))
+    return {"placements": placements, "stats": dict(adm.stats),
+            "seconds": time.perf_counter() - t0}
+
+
+def drain_protocol(device, backend="fused"):
+    """``bench_drain``'s dispatch accounting: ``PROTOCOL_LANES`` lanes
+    (K = 3, G = 16, durations 20-100 s) on four nodes of 48 / 64 / 32 / 96
+    GB, drained at ``PROTOCOL_TIMES``, each drain's placements leaving the
+    queue.  Returns each drain's placements and the admission stats."""
+    from repro_torch.sched.admission import AdmissionState
+    rng = np.random.default_rng(0)
+    adm = AdmissionState((48.0, 64.0, 32.0, 96.0), K=3, G=16,
+                         backend=backend,
+                         device=device if backend == "fused" else None)
+    lanes = _bench_lanes(rng, PROTOCOL_LANES, 3, 16, 20.0,
+                         rng.uniform(30, 120, PROTOCOL_LANES))
+    remaining = list(adm.add_lanes(
+        *lanes, dur=rng.uniform(20.0, 100.0, PROTOCOL_LANES)))
+    drains = []
+    for now in PROTOCOL_TIMES:
+        placed = adm.drain(now, remaining)
+        drains.append(placed)
+        done = {ji for ji, _ in placed}
+        remaining = [ji for ji in remaining if ji not in done]
+    return {"drains": drains, "stats": dict(adm.stats)}
+
+
+def admission_entries(calls, launches, err):
+    """The kernel line's two admission records.  Every kept call of the
+    ``calls`` recorders (the replay's, ``bench_admission``'s script's and
+    ``bench_drain``'s protocol's) is checked against its plain version;
+    ``admit_drain`` is timed at the replay's kept drains and
+    ``admit_columns`` at the script's kept refreshes, kernel and plain
+    version on the same copies, beside the bound.  A record's numbers are
+    its largest call's; every timed call is in its ``calls``."""
+    from repro_torch.kernels.admission import ops as aops
+    from repro_torch.kernels.admission import ref as aref
+    dev = torch.device("cuda")
+    replay, script, _ = calls
+    for rec in calls:
+        for name in AdmissionCalls.NAMES:
+            for _, operands, rest in rec.kept[name]:
+                (N, R), Q = operands[7].shape, operands[9].shape[0]
+                what = f"the main path's {name} call N={N} Q={Q} R={R}"
+                if name == "admit_drain":
+                    check_drain(operands, *rest, err, dev, what)
+                else:
+                    check_columns(operands, *rest, err, dev, what)
+    timed = {"admit_drain": (replay, aops.admit_drain, aref.plain_drain,
+                             "the cluster replay"),
+             "admit_columns": (script, aops.admit_columns,
+                               aref.plain_columns,
+                               "bench_admission's script")}
+    entries = []
+    for name, (rec, kern_fn, plain_fn, where) in timed.items():
+        rows = []
+        for _, operands, rest in rec.kept[name]:
+            (N, R), Q = operands[7].shape, operands[9].shape[0]
+            row = {"N": N, "Q": Q, "R": R}
+            vec = None
+            if name == "admit_drain":
+                vec = aops.admit_drain(*on_device(operands, dev),
+                                       *rest)[0].cpu()
+                row.update(count=int(vec[0]), iterations=int(vec[1]))
+            kern, plain = on_device(operands, dev), on_device(operands, dev)
+            row["ms"] = time_ms(lambda: kern_fn(*kern, *rest))
+            row["plain_ms"] = time_ms(lambda: plain_fn(*plain, *rest),
+                                      reps=9)
+            row["bytes"], row["ops"] = admission_work(operands, rest[0], vec)
+            row["bound_ms"] = _bound(row["bytes"], row["ops"],
+                                     F64_OPS_PER_S)[0]
+            rows.append(row)
+        if not rows:
+            raise AssertionError(f"the main path made no {name} call")
+        top = rows[0]
+        entries.append(_entry(
+            name, launches, err, top["ms"], top["plain_ms"], None,
+            top["bytes"], top["ops"],
+            f"the largest {name} call of {where} (N={top['N']}, "
+            f"Q={top['Q']}, R={top['R']}), one launch",
+            F64_OPS_PER_S, median_ms=float(np.median([r["ms"] for r in rows])),
+            calls=rows))
+    return entries
+
+
 def cluster_replay(err, device="cuda"):
     """Phase 12 (see the module docstring) on ``device``; returns its
     record and the replay's probe tables ``{(table, dt), ...}`` for the
     kernel line.  (``device="cpu"`` with smaller sizes rehearses it.)"""
     from repro_torch.core import RetrySpec, ksplus_retry
+    from repro_torch.kernels.admission import ops as aops
     from repro_torch.kernels.wastage import ops
     from repro_torch.sched import ClusterSim, Node, evaluate_workflow
     from repro_torch.workloads import (assert_release_order,
@@ -1323,7 +1680,23 @@ def cluster_replay(err, device="cuda"):
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
-    rec = {}
+    def admission_launches(stats, what):
+        """One ``admit_drain`` launch per drain program, and host reads =
+        drains + column refreshes, on the card (none on the CPU)."""
+        got = dict(aops.LAUNCHES)
+        if dev.type != "cuda":
+            if any(got.values()):
+                raise AssertionError(f"{what}: CPU tensors launched {got}")
+            return got
+        if got["admit_drain"] != stats["drain_dispatches"] or \
+                stats["host_reads"] != got["admit_drain"] \
+                + got["admit_columns"]:
+            raise AssertionError(
+                f"{what}: {got} for {stats['drain_dispatches']} drain "
+                f"programs and {stats['host_reads']} host reads")
+        return got
+
+    rec = {"admission_sweep": admission_sweep(err, dev)}
     times = []
     for _ in range(2):
         sync()
@@ -1352,14 +1725,17 @@ def cluster_replay(err, device="cuda"):
     dt_groups = len({job.dt for job in jobs})
     sim = ClusterSim(nodes(), engine="fused", device=dev)
     ops.reset_launches()
+    aops.reset_launches()
     with ShapeRecorder(ops, "oom_probe_groups",
-                       lambda table, dt=1.0: (table, dt)) as probes:
+                       lambda table, dt=1.0: (table, dt)) as probes, \
+            AdmissionCalls() as adm_calls:
         sync()
         t0 = time.perf_counter()
         res = sim.run(jobs, RetrySpec("ksplus"))
         sync()
         wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    adm_launches = admission_launches(sim.stats, f"{len(jobs)}-task replay")
     assert_release_order(jobs, res.placements)
     if res.unschedulable != 0:
         raise AssertionError(f"replay: {res.unschedulable} unschedulable")
@@ -1376,7 +1752,8 @@ def cluster_replay(err, device="cuda"):
                      "wastage_gbs": res.total_wastage_gbs,
                      "utilization": res.avg_utilization,
                      "dt_groups": dt_groups, "launches": launches,
-                     **sim.stats}
+                     "admission_launches": adm_launches,
+                     "admission_calls": adm_calls.summary(), **sim.stats}
     # the node-sharded drain on a one-rank group over the card: the same
     # placements, one lane and two collectives a drain iteration
     jobs = wf.to_jobs(under_frac=0.1, seed=1)
@@ -1394,6 +1771,51 @@ def cluster_replay(err, device="cuda"):
                             **ssim.stats}
     del wf, jobs
 
+    # the reference's admission benchmarks: bench_admission's script (the
+    # column refresh over a 10,000-lane queue) and bench_drain's protocol,
+    # each on the card, then fused on the CPU and on the numpy backend
+    aops.reset_launches()
+    with AdmissionCalls() as script_calls:
+        sync()
+        script = admission_script(dev)
+        sync()
+    script["launches"] = admission_launches(script["stats"],
+                                            "bench_admission's script")
+    if dev.type == "cuda" and not script["launches"]["admit_columns"]:
+        raise AssertionError("bench_admission's script refreshed no column")
+    aops.reset_launches()
+    with AdmissionCalls() as protocol_calls:
+        protocol = drain_protocol(dev)
+    protocol["launches"] = admission_launches(protocol["stats"],
+                                              "bench_drain's protocol")
+    st = protocol["stats"]
+    if st["drain_dispatches"] != st["drains"]:
+        raise AssertionError(f"bench_drain's protocol: {st}, not one "
+                             f"program a drain")
+    for backend in ("fused", "numpy"):
+        other = admission_script("cpu", backend)
+        script[f"{backend}_cpu_s"] = other["seconds"]
+        if other["placements"] != script["placements"]:
+            raise AssertionError(f"bench_admission's script: the card placed "
+                                 f"otherwise than {backend} on the CPU")
+        if drain_protocol("cpu", backend)["drains"] != protocol["drains"]:
+            raise AssertionError(f"bench_drain's protocol: the card drained "
+                                 f"otherwise than {backend} on the CPU")
+    rec["bench_admission"] = {
+        "lanes": SCRIPT_LANES, "events": SCRIPT_EVENTS,
+        "placements": len(script["placements"]),
+        "seconds": script["seconds"],
+        "fused_cpu_s": script["fused_cpu_s"],
+        "numpy_cpu_s": script["numpy_cpu_s"],
+        "admission_launches": script["launches"],
+        "admission_calls": script_calls.summary(), **script["stats"]}
+    rec["bench_drain"] = {
+        "lanes": PROTOCOL_LANES, "times": PROTOCOL_TIMES,
+        "placed": [len(d) for d in protocol["drains"]],
+        "dispatches_per_drain": st["drain_dispatches"] / st["drains"],
+        "admission_launches": protocol["launches"],
+        "admission_calls": protocol_calls.summary(), **st}
+
     small = scenarios.get("workload_replay", n_tasks=DIFF_TASKS, seed=0,
                           device=dev)
     carried = load_workflow_trace(trace_state(small), device="cpu")
@@ -1405,11 +1827,16 @@ def cluster_replay(err, device="cuda"):
             ("fused-cpu", "fused", "cpu", carried, RetrySpec("ksplus"),
              None),
             ("fused-shard1", "fused", dev, small, RetrySpec("ksplus"), 1)):
+        aops.reset_launches()
+        sim = ClusterSim(nodes(), engine=engine, shard=shard, device=device)
         t0 = time.perf_counter()
-        runs[name] = ClusterSim(nodes(), engine=engine, shard=shard,
-                                device=device).run(
-            wf_.to_jobs(under_frac=0.2, seed=0), retry)
+        runs[name] = sim.run(wf_.to_jobs(under_frac=0.2, seed=0), retry)
+        sync()
         runs[name + "_s"] = time.perf_counter() - t0
+        if name == "fused":
+            runs["fused_stats"] = dict(sim.stats)
+            runs["fused_launches"] = admission_launches(
+                sim.stats, f"{DIFF_TASKS}-task fused replay")
     _same_result(runs["packed"], runs["fused-shard1"],
                  f"{DIFF_TASKS} tasks, packed vs fused shard=1")
     for name in ("packed", "legacy", "fused-cpu", "fused-shard1"):
@@ -1420,6 +1847,8 @@ def cluster_replay(err, device="cuda"):
     rec["differential"] = {
         "tasks": DIFF_TASKS, "retries": runs["fused"].retries,
         "placements": len(runs["fused"].placements),
+        "fused_stats": runs["fused_stats"],
+        "admission_launches": runs["fused_launches"],
         **{k: v for k, v in runs.items() if k.endswith("_s")}}
 
     cases = make_suite(*SUITE_GRID)
@@ -1456,7 +1885,7 @@ def cluster_replay(err, device="cuda"):
 
     for table, dt in probes.seen:
         check_grouped(table, dt, err)
-    return rec, probes.seen
+    return rec, probes.seen, (adm_calls, script_calls, protocol_calls)
 
 
 def cluster_probe_entry(seen, launches, err):
@@ -1523,8 +1952,9 @@ def cluster_profile(tasks=REPLAY_TASKS, profiled=2048):
     wall = time.perf_counter() - t0
     cum = {f"{os.path.basename(k[0])}:{k[2]}": v[3] for k, v in
            pstats.Stats(prof).stats.items()
-           if k[2] in ("drain", "_drain_fused", "_residual", "_operands",
-                       "_run_fused", "process_job_run")}
+           if k[2] in ("drain", "_drain_fused", "admit_drain", "_book",
+                       "_refresh_fused", "_operands", "_run_fused",
+                       "process_job_run")}
     out = {"device": device_line(), "tasks": tasks, "cprofile_wall_s": wall,
            "cumulative_s": cum, **stats}
     run = replay(profiled)
@@ -1547,6 +1977,93 @@ def cluster_profile(tasks=REPLAY_TASKS, profiled=2048):
                        "device_busy_s": busy, "idle_share": 1 - busy / wall,
                        "device_kernels": len(spans), **stats}
     log(json.dumps(out))
+
+
+def cluster_phase(err):
+    """Phase 12 on the card with its log lines: returns the record, the
+    replay's probe tables and the two admission kernels' records."""
+    t0 = time.perf_counter()
+    rec, seen, calls = cluster_replay(err)
+    log(f"phase 12: workload_replay({REPLAY_TASKS}) synthesized on the card "
+        f"in {rec['synthesis_s'][0]:.3f} s (again, bitwise the same: "
+        f"{rec['synthesis_s'][1]:.3f} s); buckets {rec['buckets']}, "
+        f"{rec['trace_bytes']} bytes of traces")
+    log(f"phase 12: admit_drain == plain_drain and admit_columns == "
+        f"plain_columns on the tests' sweep ({rec['admission_sweep']} "
+        f"drains, vectors and admit_t exact, fits exact)")
+    r = rec["replay"]
+    log(f"phase 12: fused replay of {r['tasks']} tasks in {r['wall_s']:.3f} "
+        f"s: {r['drains']} drains, {r['drain_dispatches']} drain programs, "
+        f"{r['drain_iterations']} drain iterations, {r['host_reads']} host "
+        f"reads, admission launches {r['admission_launches']}, "
+        f"{r['retries']} retries, "
+        f"{r['launches']['oom_probe']} oom_probe launch(es) for "
+        f"{r['dt_groups']} dt group(s); release order holds, none "
+        f"unschedulable; calls " + json.dumps(r["admission_calls"]))
+    sr = rec["replay_shard1"]
+    log(f"phase 12: the same replay with the node-sharded drain, shard=1 on "
+        f"a one-rank group: {sr['wall_s']:.3f} s, placements equal; "
+        f"{sr['drains']} drains, {sr['drain_iterations']} drain iterations, "
+        f"{sr['host_reads']} host reads, {sr['collectives']} collectives")
+    d = rec["differential"]
+    log(f"phase 12: {DIFF_TASKS} tasks fused on the card in "
+        f"{d['fused_s']:.3f} s ({d['fused_stats']['drain_iterations']} "
+        f"drain iterations, {d['fused_stats']['host_reads']} host reads, "
+        f"admission launches {d['admission_launches']}), on the CPU in "
+        f"{d['fused-cpu_s']:.3f} s")
+    log(f"phase 12: {DIFF_TASKS} tasks fused == packed == legacy == fused on "
+        f"the CPU == fused shard=1; run_suite {rec['suite']['cases']} cases "
+        f"fused == packed; "
+        f"heavy_tail card == cpu ({time.perf_counter() - t0:.1f} s) "
+        + json.dumps(rec))
+    b = rec["bench_admission"]
+    log(f"phase 12: bench_admission's script, {b['lanes']} lanes, "
+        f"{b['events'][0]} events of up to {b['events'][1]} admissions: "
+        f"card == fused on the CPU == numpy on every placement, "
+        f"{b['placements']} placements; card {b['seconds']:.3f} s, fused "
+        f"on the CPU {b['fused_cpu_s']:.3f} s, numpy {b['numpy_cpu_s']:.3f}"
+        f" s; {b['host_reads']} host reads, admission "
+        f"launches {b['admission_launches']}; calls "
+        + json.dumps(b["admission_calls"]))
+    p = rec["bench_drain"]
+    log(f"phase 12: bench_drain's protocol, {p['lanes']} lanes drained at "
+        f"{list(p['times'])} s: card == fused on the CPU == numpy, placed "
+        f"{p['placed']}; {p['drains']} drains, {p['drain_dispatches']} "
+        f"drain programs ({p['dispatches_per_drain']:g} a drain), "
+        f"{p['drain_iterations']} drain iterations, {p['host_reads']} host "
+        f"reads, admission launches {p['admission_launches']}")
+    runs = {"cluster_replay": r, "bench_admission": b, "bench_drain": p}
+    main_path = {k: sum(x["admission_launches"][k] for x in runs.values())
+                 for k in ("admit_columns", "admit_drain")}
+    adm = admission_entries(calls, main_path, err)
+    for k in adm:
+        k["launches_by_run"] = {name: x["admission_launches"][k["name"]]
+                                for name, x in runs.items()}
+    for k in adm:
+        log(f"phase 12: {k['name']} == plain at the main path's "
+            f"kept calls; launches {k['launches_by_run']}; at the largest "
+            f"{k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, bound "
+            f"{k['bound_ms']:.5f} by {k['bound_by']}), median over them "
+            f"{k['median_ms']:.4f} ms; " + json.dumps(k["calls"]))
+
+    return rec, seen, adm
+
+
+def admission_bench():
+    """Phase 12 alone on the card, with its builds (the wastage and the
+    admission sources), then its kernel records as one JSON line."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build
+    from repro_torch.kernels.admission import ops as aops
+    from repro_torch.kernels.wastage import ops
+    log(device_line())
+    built = build.build_all([ops.SOURCE, aops.SOURCE])
+    path, secs = built["admission"]
+    log(f"built {os.path.relpath(path, ROOT)} in {secs:.2f} s: " + json.dumps(
+        kernel_report(aops.SOURCE, path, keep=lambda name: "_kernel" in name)))
+    err = dict.fromkeys(REPLACES, 0.0)
+    _, _, adm = cluster_phase(err)
+    print(json.dumps({"kernels": adm}), flush=True)
 
 
 # ------------------------------------------------------------- phase 13
@@ -3124,6 +3641,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.kernels.admission import ops as aops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.ssd import ops as sops
     from repro_torch.kernels.wastage import ops
@@ -3140,13 +3658,20 @@ def main() -> int:
 
     # 2. build: every source at once, one nvcc each
     t0 = time.perf_counter()
-    built = build.build_all([ops.SOURCE, sops.SOURCE, fops.SOURCE])
+    built = build.build_all([ops.SOURCE, sops.SOURCE, fops.SOURCE,
+                             aops.SOURCE])
     build_wall = time.perf_counter() - t0
     path, secs = built["wastage"]
     log(f"phase 2: built {os.path.relpath(path, ROOT)} in {secs:.2f} s; "
         f"wastage_groups<mode> (probe 0, eval 1, engine 2) registers and "
         f"[spill store, spill load] bytes: " + json.dumps(kernel_report(
             ops.SOURCE, path, keep=lambda name: "wastage_groups" in name)))
+    path, secs = built["admission"]
+    log(f"phase 2: built {os.path.relpath(path, ROOT)} in {secs:.2f} s; "
+        f"drain_kernel<masked,headroom> and columns_kernel<masked> "
+        f"registers and [spill store, spill load] bytes: " + json.dumps(
+            kernel_report(aops.SOURCE, path,
+                          keep=lambda name: "_kernel" in name)))
 
     # 3. kernel parity on the tests' sweeps
     err = dict.fromkeys(REPLACES, 0.0)
@@ -3304,29 +3829,8 @@ def main() -> int:
             f"{k['bound_ms']:.4f} by {k['bound_by']})")
 
     # 12. the cluster replay at the reference benchmark's full size
-    t0 = time.perf_counter()
-    rec, seen = cluster_replay(err)
-    log(f"phase 12: workload_replay({REPLAY_TASKS}) synthesized on the card "
-        f"in {rec['synthesis_s'][0]:.3f} s (again, bitwise the same: "
-        f"{rec['synthesis_s'][1]:.3f} s); buckets {rec['buckets']}, "
-        f"{rec['trace_bytes']} bytes of traces")
+    rec, seen, adm = cluster_phase(err)
     r = rec["replay"]
-    log(f"phase 12: fused replay of {r['tasks']} tasks in {r['wall_s']:.3f} "
-        f"s: {r['drains']} drains, {r['drain_iterations']} drain iterations,"
-        f" {r['host_reads']} host reads, {r['retries']} retries, "
-        f"{r['launches']['oom_probe']} oom_probe launch(es) for "
-        f"{r['dt_groups']} dt group(s); release order holds, none "
-        f"unschedulable")
-    sr = rec["replay_shard1"]
-    log(f"phase 12: the same replay with the node-sharded drain, shard=1 on "
-        f"a one-rank group: {sr['wall_s']:.3f} s, placements equal; "
-        f"{sr['drains']} drains, {sr['drain_iterations']} drain iterations, "
-        f"{sr['host_reads']} host reads, {sr['collectives']} collectives")
-    log(f"phase 12: {DIFF_TASKS} tasks fused == packed == legacy == fused on "
-        f"the CPU == fused shard=1; run_suite {rec['suite']['cases']} cases "
-        f"fused == packed; "
-        f"heavy_tail card == cpu ({time.perf_counter() - t0:.1f} s) "
-        + json.dumps(rec))
     # the kernel line's oom_probe: the cluster path, where it launches now;
     # phase 6's split timing stays beside it
     fleet_probe = kernels[0]
@@ -3339,6 +3843,7 @@ def main() -> int:
     log(f"phase 12: oom_probe at the replay's table {k['ms']:.4f} ms (plain "
         f"{k['plain_ms']:.4f}, bound {k['bound_ms']:.5f} by "
         f"{k['bound_by']}) over {k['groups']}")
+    kernels += adm
 
     # 13. the prediction service on the card
     t0 = time.perf_counter()

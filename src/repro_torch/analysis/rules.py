@@ -31,8 +31,10 @@ from .model import (HOST_CONVERTERS, FunctionInfo, ModuleModel, dotted_name,
 _NP_SYNC = {"np.asarray", "numpy.asarray", "np.array", "numpy.array"}
 _FACTORIES = {"torch.tensor", "torch.full", "torch.zeros", "torch.ones",
               "torch.arange"}
-# Modules whose math is float64 by contract.
-_FLOAT64_MODULES = ("sched/admission.py", "core/envelope.py")
+# Modules whose math is float64 by contract (a trailing "/": every module
+# of that package).
+_FLOAT64_MODULES = ("sched/admission.py", "core/envelope.py",
+                    "kernels/admission/")
 
 
 def _hot_functions(ctx: LintContext):
@@ -168,12 +170,14 @@ def _bare_device_in_test(test, device) -> str | None:
 def implicit_float32(ctx: LintContext):
     """``torch.tensor`` / ``full`` / ``zeros`` / ``ones`` / ``arange``
     without ``dtype=`` in a module whose math is float64 by contract
-    (``sched/admission.py``, ``core/envelope.py``).  PyTorch's default
-    dtype is float32: a float fill or list silently drops to float32, and
-    the admission decisions are held to float64 bit for bit."""
+    (``sched/admission.py``, ``core/envelope.py``, ``kernels/admission/``).
+    PyTorch's default dtype is float32: a float fill or list silently drops
+    to float32, and the admission decisions are held to float64 bit for
+    bit."""
     for m in ctx.models:
         path = m.path.replace("\\", "/")
-        if not path.endswith(_FLOAT64_MODULES):
+        if not any(path.endswith(mod) or (mod.endswith("/") and mod in path)
+                   for mod in _FLOAT64_MODULES):
             continue
         for node in ast.walk(m.tree):
             if not (isinstance(node, ast.Call)

@@ -4,9 +4,11 @@
   (``csrc/wastage.cu``);
 * ``ssd`` — the Mamba2 chunked SSD scan (``csrc/ssd.cu``);
 * ``flash_attention`` — causal / windowed GQA attention forward
-  (``csrc/flash_attention.cu``).
+  (``csrc/flash_attention.cu``);
+* ``admission`` — the cluster's float64 admission programs: the fits
+  columns and a whole greedy drain in one launch (``csrc/admission.cu``).
 
-All three are CUDA C++ for ``sm_90a``.  Each kernel ships ``csrc/`` (the
+All four are CUDA C++ for ``sm_90a``.  Each kernel ships ``csrc/`` (the
 CUDA source), ``ops.py`` (the checked wrapper with its launch count) and
 ``ref.py`` (the plain PyTorch version, used for CPU tensors and as the
 kernel's oracle); :mod:`repro_torch.kernels.build` compiles each source with

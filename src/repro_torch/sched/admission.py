@@ -27,10 +27,12 @@ per-call recomputation:
   - ``backend="numpy"`` — the float64 host reference: per-node
     :func:`repro_torch.core.envelope.fits_column` calls, exactly the
     arithmetic the packed ``ClusterSim`` engine inlines,
-  - ``backend="fused"`` — float64 PyTorch on a device (None means the
-    card): one batch of tensor operations per refresh computes every
-    invalid ``(node, lane)`` entry at once, and a whole greedy drain runs
-    as a loop of device steps over resident state (:meth:`drain`).  The
+  - ``backend="fused"`` — float64 on a device (None means the card): on
+    the card one ``admit_columns`` launch per refresh computes every
+    invalid ``(node, lane)`` entry at once, and one ``admit_drain`` launch
+    runs a whole greedy drain over resident state (:meth:`drain`), read
+    back once (:mod:`repro_torch.kernels.admission`; on the CPU their
+    plain versions).  The
     packed envelope / need / grid / placement-time buffers live on the
     device and are updated in place (``index_copy_``), so the per-event
     hot path is device work over the already-packed ``(B, K)`` layout —
@@ -86,44 +88,14 @@ import torch
 from repro_torch.analysis.contracts import record_dispatch
 from repro_torch.core.envelope import PAD_START, fits_column
 from repro_torch.device import process_world, resolve_device
+from repro_torch.kernels.admission import ops as _aops
+from repro_torch.kernels.admission.ref import WINDOW, _alloc_chain, _residual
 from repro_torch.obs import metrics as _met
 from repro_torch.obs import trace as _obs
 
 __all__ = ["AdmissionState"]
 
-WINDOW = 1e-9  # a resident counts inside [t0, t0 + dur + WINDOW)
 PAD_CAP = -1e30  # capacity of the padding rows of a sharded node axis
-
-
-def _alloc_chain(rs: torch.Tensor, rp: torch.Tensor,
-                 relc: torch.Tensor) -> torch.Tensor:
-    """Step-function evaluation as a K-step select chain: with ascending
-    starts, the last satisfied ``starts_k <= t`` wins — exactly
-    ``searchsorted(side='right') - 1`` clipped to ``[0, K-1]``, without a
-    ``(lanes, times, K)`` one-hot tensor.  ``(L, K) x (L, M) -> (L, M)``."""
-    alloc = rp[:, 0:1].expand(relc.shape)
-    for k in range(1, rs.shape[1]):
-        alloc = torch.where(rs[:, k:k + 1] <= relc, rp[:, k:k + 1], alloc)
-    return alloc
-
-
-def _residual(starts, peaks, admit_t, dur, caps, run_idx, run_valid, tabs,
-              masked: bool) -> torch.Tensor:
-    """``resid[n, m] = caps[n] - sum_r alloc_r(tabs[m] - t0[r])`` over each
-    node's residents (``run_idx`` ``(N, R)``, padded rows masked out by
-    ``run_valid``), mirroring ``residual_over`` elementwise in float64.
-    ``masked`` selects the anticipating residual (a resident only counts
-    inside ``[t0, t0 + dur)``, the cluster's rule) over the conservative
-    count-forever one (the elastic planner's)."""
-    N, R = run_idx.shape
-    flat = run_idx.reshape(-1)
-    rel = tabs[None, :] - admit_t[flat][:, None]        # (N*R, M)
-    alloc = _alloc_chain(starts[flat], peaks[flat], rel.clamp_min(0.0))
-    if masked:
-        active = (rel >= 0.0) & (rel < dur[flat][:, None] + WINDOW)
-        alloc = torch.where(active, alloc, 0.0)
-    alloc = torch.where(run_valid.reshape(-1)[:, None], alloc, 0.0)
-    return caps[:, None] - alloc.reshape(N, R, -1).sum(dim=1)
 
 
 class AdmissionState:
@@ -155,7 +127,8 @@ class AdmissionState:
     :attr:`stats` counts ``drains``, the fused drain programs run
     (``drain_dispatches``), their loop iterations (``drain_iterations``),
     the device-to-host reads of the fused backend (``host_reads``: one
-    per drain iteration, one per fused refresh) and the collective
+    per fused refresh and one per drain on the card; one per drain
+    iteration on the CPU and in a sharded drain) and the collective
     reductions of a sharded drain (``collectives``).
     """
 
@@ -441,10 +414,11 @@ class AdmissionState:
 
     def _operands(self, rows: Sequence[int], lanes, now: float):
         """The per-call operands of a fused program, in two uploads: the
-        residents of node ``rows`` (``(N, R)`` index and validity, ``R``
-        the longest resident list, at least 1) with the queued lanes, and
-        the float64 ``caps``, ``now`` and ``tol``.  A row past the last
-        node is padding: no residents, capacity ``PAD_CAP``."""
+        residents of node ``rows`` (``(N, R)`` index and validity, nonzero
+        where valid; ``R`` the longest resident list, at least 1) with the
+        queued lanes, and the float64 ``caps``, ``now`` and ``tol``.  A row
+        past the last node is padding: no residents, capacity
+        ``PAD_CAP``."""
         rows = np.asarray(rows, np.int64)
         real = rows < self.N
         sel = [self.running[ni] if ok else []
@@ -464,12 +438,19 @@ class AdmissionState:
         flts = torch.from_numpy(np.concatenate([caps, [now, self.tol]])
                                 ).to(self.device)
         return (flts[:N], dints[:N * R].view(N, R),
-                dints[N * R:2 * N * R].view(N, R) != 0, dints[2 * N * R:],
+                dints[N * R:2 * N * R].view(N, R), dints[2 * N * R:],
                 flts[N], flts[N + 1])
 
+    def _lane_state(self):
+        """The resident lane buffers, in the admission kernels' order."""
+        if self._dirty_dev:
+            self._dev_sync()
+        return (self._dstarts, self._dpeaks, self._dadmit, self._ddur,
+                self._dneed, self._dgrid)
+
     def _refresh_fused(self, nodes: np.ndarray, lanes: np.ndarray):
-        """One batch of device operations for every invalid (node, lane)
-        entry, and one host read.
+        """Every invalid (node, lane) entry in one program and one host
+        read: one ``admit_columns`` launch on the card.
 
         Only the stale node rows enter the program — after a placement,
         that is a single node over the previously-True lanes, not the
@@ -480,16 +461,10 @@ class AdmissionState:
             minresid[n, q] = min_g resid[n, q, g]
         """
         record_dispatch("admission.columns")
-        if self._dirty_dev:
-            self._dev_sync()
-        caps, run_idx, run_valid, q_idx, now, tol = self._operands(
-            nodes, lanes, self._now)
-        tabs = (now + self._dgrid[q_idx]).reshape(-1)
-        resid = _residual(self._dstarts, self._dpeaks, self._dadmit,
-                          self._ddur, caps, run_idx, run_valid, tabs,
-                          self.use_dur).reshape(len(nodes), -1, self.G)
-        fits = (self._dneed[q_idx][None] <= resid + tol).all(dim=-1)
-        out = torch.stack([fits.to(torch.float64), resid.amin(dim=-1)]).cpu().numpy()
+        lane_state = self._lane_state()
+        out = _aops.admit_columns(
+            *lane_state, *self._operands(nodes, lanes, self._now),
+            self.use_dur).cpu().numpy()
         self.stats["host_reads"] += 1
         self.fits[np.ix_(nodes, lanes)] = out[0] != 0
         self.minresid[np.ix_(nodes, lanes)] = out[1]
@@ -501,10 +476,10 @@ class AdmissionState:
         lanes until none fits, returning ``[(lane, node_row), ...]`` in
         decision order.
 
-        On the fused backend this is the device drain program
-        (:meth:`_drain_fused`): a loop of device steps over resident state
-        with one host read per iteration, the admission-time scatter for
-        every placement included.  On the numpy backend it is the host
+        On the fused backend this is the drain program
+        (:meth:`_drain_fused`): on the card one launch over resident state
+        and one host read, the admission-time scatter for every placement
+        included.  On the numpy backend it is the host
         reference loop over :meth:`columns` — the oracle the device program
         is held to.
 
@@ -603,120 +578,37 @@ class AdmissionState:
 
     def _drain_fused(self, now: float, lanes: List[int],
                      select: str) -> List[tuple]:
-        """The device drain program over ``lanes`` (queue order).
+        """The drain program over ``lanes`` (queue order): the reference's
+        ``_drain_kernel``, one ``admit_drain`` launch on the card
+        (:func:`repro_torch.kernels.admission.ref.plain_drain` on the CPU).
 
-        Base residuals ``resid[n, q, g]`` are computed once from the
-        current residents (the program of :meth:`_refresh_fused`); then
-        each iteration, all on the device:
-
-        1. recomputes ``fits[n, q]`` from the carried residuals,
-        2. places a maximal *order-preserving independent prefix* of the
-           queue in one step.  Residual monotonicity proves the picks
-           independent: walking lanes in queue order, every fitting lane
-           whose fitting-node set is disjoint from the nodes already used
-           *this iteration* would be chosen identically by the sequential
-           greedy, because none of the entries its decision reads have
-           changed.  The prefix stops at the first fitting lane whose fit
-           set intersects a used node — it is re-evaluated next iteration,
-        3. subtracts each placed lane's windowed envelope from its node's
-           residual rows (at most one lane per node per iteration, by the
-           cut) and clears the lane's active bit,
-
-        and the host reads one small vector (done flag, count, placement
-        list): one host read per iteration, until no queued lane fits.
-        The placed lanes' admission times are then scattered into the
-        resident ``admit_t`` buffer in place; unused placement slots write
-        to a spare slot past the end, which is never read.
+        The program computes the base residuals from the current residents,
+        then places order-preserving independent prefixes of the queue
+        until no lane fits, and scatters the placed lanes' admission times
+        into the resident ``admit_t`` buffer.  The host reads its vector
+        (count, iterations, placement list) once; the plain loop on the CPU
+        reads its done flag every iteration.
         """
-        if self._dirty_dev:
-            self._dev_sync()
-        N, Q, G, B = self.N, len(lanes), self.G, self.B
-        dev = self.device
-        caps, run_idx, run_valid, q_idx, now_t, tol = self._operands(
-            range(N), lanes, now)
-        starts, peaks, dur = self._dstarts, self._dpeaks, self._ddur
-        tabs = (now_t + self._dgrid[q_idx]).reshape(-1)    # (Q*G,) absolute
-        resid = _residual(starts, peaks, self._dadmit, dur, caps, run_idx,
-                          run_valid, tabs, self.use_dur).reshape(N, Q, G)
-        need_q = self._dneed[q_idx]
-        if select == "headroom":
-            peak_q = peaks[q_idx].amax(dim=1)
-        # A lane placed inside this drain has admit_t == now *exactly*, so
-        # its contribution at grid point (q, g) is evaluated at
-        # rel = (now + grid[q, g]) - now — kept in this form (not
-        # simplified to grid[q, g]) so the arithmetic matches what the
-        # refresh computes for that resident afterwards, bitwise.
-        prel = tabs - now_t
-        prelc = prel.clamp_min(0.0)[None, :].expand(N, -1)
-        nrange = torch.arange(N, dtype=torch.int64, device=dev)
-        qrange = torch.arange(Q, dtype=torch.int64, device=dev)
-        spare_q = torch.full((), Q, dtype=torch.int64, device=dev)
-        spare_n = torch.full((), N, dtype=torch.int64, device=dev)
-        active = torch.ones((Q,), dtype=torch.bool, device=dev)
-        # slot Q of the placement list and slot N of the node -> lane map
-        # are the spares that absorb the unplaced lanes' scatters
-        out = torch.full((2, Q + 1), B, dtype=torch.int64, device=dev)
-        count = torch.zeros((), dtype=torch.int64, device=dev)
+        lane_state = self._lane_state()
         self.stats["drain_dispatches"] += 1
         record_dispatch("admission.drain")
-        while True:
-            self.stats["drain_iterations"] += 1
-            fits = (need_q[None] <= resid + tol).all(dim=-1) & active[None]
-            anyfit = fits.any(dim=0)                         # (Q,)
-            done = ~anyfit.any()
-            if select == "first":
-                node_q = fits.to(torch.int8).argmax(dim=0)
-            else:
-                head = resid.amin(dim=-1) - peak_q[None, :]
-                node_q = torch.where(fits, head, -torch.inf).argmax(dim=0)
-            onehot = (nrange[:, None] == node_q[None, :]) & anyfit[None, :]
-            oh = onehot.to(torch.int32)
-            before = (oh.cumsum(dim=1) - oh) > 0
-            conflict = anyfit & (fits & before).any(dim=0)
-            first_conf = torch.where(
-                conflict.any(), conflict.to(torch.int8).argmax(), spare_q)
-            place = anyfit & (qrange < first_conf) & ~done
-            slot = torch.where(place, count + place.cumsum(dim=0) - 1,
-                               spare_q)
-            out[0].index_put_((slot,), q_idx)
-            out[1].index_put_((slot,), node_q)
-            count = count + place.sum()
-            col = torch.full((N + 1,), Q, dtype=torch.int64, device=dev)
-            col.index_put_((torch.where(place, node_q, spare_n),), qrange)
-            col = col[:N]
-            hasl = col < Q
-            gl = q_idx[torch.where(hasl, col, 0)]
-            pal = _alloc_chain(starts[gl], peaks[gl], prelc)
-            if self.use_dur:
-                pal = torch.where((prel[None, :] >= 0.0)
-                                  & (prel[None, :] < dur[gl][:, None]
-                                     + WINDOW), pal, 0.0)
-            pal = torch.where(hasl[:, None], pal, 0.0)
-            resid = resid - pal.reshape(N, Q, G)
-            active = active & ~place
-            # the one host read of this iteration
-            host = torch.cat([torch.stack([done.to(torch.int64), count]),
-                              out[:, :Q].reshape(-1)]).cpu().numpy()
-            self.stats["host_reads"] += 1
-            if host[0]:
-                break
-        return self._book(now, out, host, Q)
+        vec, reads = _aops.admit_drain(
+            *lane_state, *self._operands(range(self.N), lanes, now),
+            self.use_dur, select)
+        # the one host read of this drain (on the card)
+        host = vec.cpu().numpy()
+        self.stats["drain_iterations"] += int(host[1])
+        self.stats["host_reads"] += reads
+        return self._book(now, host, len(lanes))
 
-    def _book(self, now: float, out: torch.Tensor, host: np.ndarray,
-              Q: int) -> List[tuple]:
-        """A drain program's placements (``out`` on the device, ``host``
-        its last read: done flag, count, lanes, nodes) into the resident
-        ``admit_t`` buffer and the host bookkeeping."""
-        n = int(host[1])
-        # Admission times of the placed lanes, scattered in place; unused
-        # slots hold lane B, the spare slot of the buffer.  (Slot Q of the
-        # placement list absorbed the unplaced lanes' writes: not read.)
-        self._dadmit.index_fill_(0, out[0, :Q], float(now))
+    def _book(self, now: float, host: np.ndarray, Q: int) -> List[tuple]:
+        """A drain program's placements (``host``: the count, a word not
+        read here, ``lanes[Q]``, ``nodes[Q]``) into the host bookkeeping;
+        their admission times are already in the device's ``admit_t``."""
+        n = int(host[0])
         placed: List[tuple] = []
         for lane, ni in zip(host[2:2 + n].tolist(),
                             host[2 + Q:2 + Q + n].tolist()):
-            # Host bookkeeping per placement; the device-side admit_t
-            # scatter already happened above.
             self.running[ni].append(lane)
             self.admit_t[lane] = now
             # Monotonic rule (same as place()): the placement only shrank
@@ -767,7 +659,7 @@ class AdmissionState:
         need_q = self._dneed[q_idx]
         if select == "headroom":
             peak_q = peaks[q_idx].amax(dim=1)
-        # as in _drain_fused: the placed lane's rel kept as now + grid - now
+        # as in plain_drain: the placed lane's rel kept as now + grid - now
         prel = tabs - now_t
         prelc = prel.clamp_min(0.0)[None, :]
         gidx = torch.arange(lo, lo + nl, dtype=torch.int64, device=dev)
@@ -818,9 +710,12 @@ class AdmissionState:
                                         pal.reshape(1, Q, G), 0.0)
             active = active & ~(place & (qrange == qsel))
             # the one host read of this iteration
-            host = torch.cat([torch.stack([done.to(torch.int64), count]),
+            host = torch.cat([torch.stack([count, done.to(torch.int64)]),
                               out[:, :Q].reshape(-1)]).cpu().numpy()
             self.stats["host_reads"] += 1
-            if host[0]:
+            if host[1]:
                 break
-        return self._book(now, out, host, Q)
+        # the placed lanes' admission times, scattered in place; unused
+        # slots hold lane B, the spare slot of the buffer
+        self._dadmit.index_fill_(0, out[0, :Q], float(now))
+        return self._book(now, host, Q)

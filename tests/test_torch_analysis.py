@@ -6,8 +6,8 @@ Rule tests run the real lint over fixture modules written to
 ``tmp_path``: each isolates one hazard of the package's idioms, beside the
 clean twin that must not be flagged.  The gate test pins the acceptance
 criterion: ``python -m repro_torch.analysis --strict src/repro_torch``
-exits 0 against the committed baseline, which carries the drain's host
-read as a finding with its reason.
+exits 0 against the committed baseline, which carries the drains' host
+reads as findings with their reasons.
 """
 
 import json
@@ -191,7 +191,8 @@ def good(n, dev):
 """
 
     @pytest.mark.parametrize("module", ["sched/admission.py",
-                                        "core/envelope.py"])
+                                        "core/envelope.py",
+                                        "kernels/admission/ref.py"])
     def test_float64_modules_flagged(self, tmp_path, module):
         active, _ = _lint_src(tmp_path, self.SRC, name=module)
         found = _by_rule(active, "implicit-float32")
@@ -371,24 +372,29 @@ class TestGate:
             assert entry["why"] and not entry["why"].startswith("TODO"), key
 
     def test_drain_read_is_a_baselined_finding(self, monkeypatch):
-        """The drain program's one host read per iteration is a finding
-        the rule sees, kept by the baseline with its reason."""
+        """The drain programs' host reads are findings the rule sees, kept
+        by the baseline with their reasons: one a drain for the one-device
+        program (its kernel's vector), one an iteration for the sharded
+        program and for the plain loop the CPU route runs."""
         monkeypatch.chdir(REPO_ROOT)
-        path = os.path.join(PORT_SRC, "sched", "admission.py")
-        with open(path) as f:
-            lines = f.read().splitlines()
-        reads = [i + 2 for i, line in enumerate(lines)
-                 if "the one host read of this iteration" in line]
-        assert len(reads) == 2  # the one-device and the sharded program
+        adm = os.path.join(PORT_SRC, "sched", "admission.py")
+        plain = os.path.join(PORT_SRC, "kernels", "admission", "ref.py")
         active, suppressed, _ = run_lint([PORT_SRC])
         at = {(f.path, f.line) for f in active
               if f.rule == "host-sync-in-hot-path"}
-        rel = path.replace(os.sep, "/")
-        for line in reads:
-            assert (rel, line) in at, (line, sorted(at))
-        entry = load_baseline(BASELINE)[f"{rel}::host-sync-in-hot-path"]
-        assert "drain" in entry["why"]
-        assert not any(f.path == rel for f in suppressed)
+        for path, marker, why in (
+                (adm, "the one host read of this drain", "drain"),
+                (adm, "the one host read of this iteration", "sharded"),
+                (plain, "the host read of this iteration", "plain_drain")):
+            with open(path) as f:
+                lines = f.read().splitlines()
+            reads = [i + 2 for i, line in enumerate(lines) if marker in line]
+            assert len(reads) == 1, (path, marker)
+            rel = path.replace(os.sep, "/")
+            assert (rel, reads[0]) in at, (reads[0], sorted(at))
+            entry = load_baseline(BASELINE)[f"{rel}::host-sync-in-hot-path"]
+            assert why in entry["why"]
+            assert not any(f.path == rel for f in suppressed)
 
     def test_list_rules_runs(self, capsys):
         assert lint_main(["--list-rules"]) == 0
