@@ -80,7 +80,8 @@ class LintConfig:
     """Knobs the rules consult; tests override to point at fixtures."""
 
     # Hot-path roots for host-sync reachability: (class-or-None, function)
-    # (the reference's roots; the port keeps their names).
+    # (the reference's roots, whose names the port keeps, and the serving
+    # steps of the LM substrate).
     entry_points: tuple = (
         ("ClusterSim", "run"),
         ("AdmissionState", "drain"),
@@ -91,6 +92,8 @@ class LintConfig:
         (None, "process_job_run"),
         ("MicroBatcher", "submit"),
         ("MicroBatcher", "_flush"),
+        (None, "prefill"),
+        (None, "decode_step"),
     )
     # Path fragments exempt from hot-path rules (bench/warmup/tests).
     allow_paths: tuple = ("benchmarks/", "tests/", "launch/")

@@ -200,7 +200,8 @@ def implicit_float32(ctx: LintContext):
 # under (``from repro_torch.obs import trace as _obs`` / ``metrics as
 # _met``) and the recording entry points that allocate when tracing is on.
 _OBS_ROOTS = {"obs", "trace", "metrics", "_obs", "_met"}
-_OBS_CALLS = {"span", "instant", "counter", "gauge", "hist", "series"}
+_OBS_CALLS = {"span", "instant", "count", "counter", "gauge", "hist",
+               "series"}
 
 
 @rule("unguarded-obs-in-hot-path")

@@ -29,12 +29,17 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 
+from repro_torch.obs import trace as _obs
+
 __all__ = [
     "default_rules", "mesh_context", "logical_constraint", "spec_for",
     "placements_for", "sharding_for", "tree_shardings", "current_mesh",
     "current_batch_shards", "current_batch_axes", "gathered",
-    "shard_index",
+    "count_casts", "shard_index", "CAST_BYTES",
 ]
+
+# The tracer's count of bytes written by casts of parameters at their use.
+CAST_BYTES = "weights.cast_bytes"
 
 AxisName = Union[str, Tuple[str, ...], None]
 
@@ -197,11 +202,27 @@ class _Constrain(torch.autograd.Function):
         return g.redistribute(ctx.mesh, ctx.src), None, None
 
 
+def count_casts(dtype, *ws) -> None:
+    """Add to the tracer's :data:`CAST_BYTES` what casting each parameter
+    of ``ws`` to ``dtype`` writes (``numel × itemsize``, this device's
+    shard of a DTensor), for those not in ``dtype`` already: shapes only,
+    no device read.  Callers guard it with ``if _obs.enabled``."""
+    n = 0
+    for w in ws:
+        if w.dtype != dtype:
+            n += (w.to_local() if isinstance(w, DTensor) else w).numel()
+    if n:
+        _obs.count(CAST_BYTES, n * dtype.itemsize)
+
+
 def gathered(w, dtype):
     """A parameter at its use: ``w.to(dtype)``; a DTensor is also gathered
     over the mesh axes that hold its FSDP shards (the rules' "embed_fsdp"
     target, ZeRO-3 style: an all-gather at use, whose backward
-    reduce-scatters the gradient), keeping its tensor-parallel split."""
+    reduce-scatters the gradient), keeping its tensor-parallel split.
+    Under tracing the cast counts in :data:`CAST_BYTES`."""
+    if _obs.enabled:
+        count_casts(dtype, w)
     w = w.to(dtype)
     ctx = getattr(_state, "ctx", None)
     if ctx is None or not isinstance(w, DTensor):

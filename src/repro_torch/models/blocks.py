@@ -12,7 +12,9 @@ families are stacks of dense blocks (M-RoPE, or non-causal attention).
 The parameter declarations (``*_param_defs``) keep the reference's shapes
 and init kinds; the modules hold them as ``nn.Parameter``s, and the
 ``apply_*`` functions keep the reference's names and bodies, with each
-module's ``forward`` and ``decode`` calling them.
+module's ``forward`` and ``decode`` calling them.  Under tracing
+(:mod:`repro_torch.obs.trace`) each attention sublayer is an
+``attention`` span.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from repro_torch.models.layers import (apply_mrope, apply_rope, rmsnorm,
 from repro_torch.models.mamba2 import mamba2_decode, mamba2_mixer
 from repro_torch.models.moe import moe_block, moe_block_local
 from repro_torch.models.params import ParamDef, ParamModule
+from repro_torch.obs import trace as _obs
 
 __all__ = [
     "CONV_KW", "attn_param_defs", "mlp_param_defs", "moe_param_defs",
@@ -179,6 +182,13 @@ def apply_attn(p, cfg, h: torch.Tensor, positions: torch.Tensor, *,
 
     With ``return_kv`` it also returns ``(k, v)`` for the KV cache.
     """
+    if _obs.enabled:
+        with _obs.span("attention"):
+            return _attn(p, cfg, h, positions, window, return_kv)
+    return _attn(p, cfg, h, positions, window, return_kv)
+
+
+def _attn(p, cfg, h, positions, window, return_kv):
     resid = h
     h = rmsnorm(h, p.ln, cfg.norm_eps)
     q, k, v = _project_qkv(p, cfg, h)
@@ -197,6 +207,15 @@ def apply_attn_decode(p, cfg, h: torch.Tensor, pos: torch.Tensor,
     """Decode attention sublayer; writes this token's K/V into the cache in
     place.  ``kv_positions`` already holds the current token (updated once
     per step, before the layers)."""
+    if _obs.enabled:
+        with _obs.span("attention"):
+            return _attn_decode(p, cfg, h, pos, cache_k, cache_v,
+                                kv_positions, window)
+    return _attn_decode(p, cfg, h, pos, cache_k, cache_v, kv_positions,
+                        window)
+
+
+def _attn_decode(p, cfg, h, pos, cache_k, cache_v, kv_positions, window):
     resid = h
     h = rmsnorm(h, p.ln, cfg.norm_eps)
     q, k, v = _project_qkv(p, cfg, h)

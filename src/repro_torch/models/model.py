@@ -33,7 +33,10 @@ Entry points, with the reference's names:
   logical axes (the reference dry run's);
 * :func:`prefill` / :func:`decode_step` — run where the model's parameters
   are.  ``decode_step`` updates the cache's tensors in place and returns
-  the same dict;
+  the same dict.  Under tracing (:mod:`repro_torch.obs.trace`) a decode
+  step is a root span, ``model.decode_step``, over the host's issue of its
+  work (it reads nothing from the device), whose children are the blocks'
+  ``attention`` and ``moe.*`` spans;
 * :func:`forward_train` — ``(loss, metrics)`` of a batch of tokens (or
   embeds) and labels through the reference's fused LM head and cross
   entropy, with autograd recording (on the card the forward and backward
@@ -67,6 +70,7 @@ from repro_torch.models.blocks import (CONV_KW, DenseBlock, Mamba2Block,
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import embed_lookup, rmsnorm
 from repro_torch.models.params import ParamDef, init_param
+from repro_torch.obs import trace as _obs
 
 __all__ = ["Model", "init_params", "load_jax_params", "decayed",
            "param_defs", "param_shapes", "param_specs", "tree_specs",
@@ -652,6 +656,13 @@ def decode_step(model: Model, cfg: ModelConfig, batch: Dict, cache: Dict,
     Returns ``(logits (B,1,V) f32, cache)``; the cache's tensors are
     updated in place.  Raises ``ValueError`` for an encoder-only model.
     """
+    if _obs.enabled:
+        with _obs.span("model.decode_step", B=pos.shape[0]):
+            return _decode_step(model, cfg, batch, cache, pos)
+    return _decode_step(model, cfg, batch, cache, pos)
+
+
+def _decode_step(model, cfg, batch, cache, pos):
     _check_family(cfg)
     if cfg.is_encoder_only:
         raise ValueError("encoder-only models have no decode step")

@@ -32,10 +32,18 @@ over ``model``), the expert products run on the ``expert``-sharded weights
 (each ``model`` device its own experts), and each device's combine of its
 experts' rows is a partial sum that the ``y`` constraint reduces over
 ``model``.  The combine keeps the design above: no scatter-add.
+
+Under tracing (:mod:`repro_torch.obs.trace`) the one-device block records
+four sibling spans, ``moe.route``, ``moe.dispatch`` (the gather and the
+buffer scatter), ``moe.experts`` (the weight casts and the three ``bmm``)
+and ``moe.combine``, and counts the router's and the experts' casts to the
+compute dtype in ``weights.cast_bytes``.  The expert-parallel form records
+no span.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, NamedTuple, Tuple
 
 import torch
@@ -43,13 +51,17 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.launch.partitioning import (current_batch_axes,
+from repro_torch.launch.partitioning import (count_casts,
+                                             current_batch_axes,
                                              current_batch_shards,
                                              gathered, logical_constraint,
                                              shard_index)
+from repro_torch.obs import trace as _obs
 
 __all__ = ["Routing", "route", "moe_capacity", "moe_block",
            "moe_block_local"]
+
+_NOSPAN = contextlib.nullcontext()      # a phase's context while untraced
 
 
 class Routing(NamedTuple):
@@ -85,6 +97,8 @@ def route(xs: torch.Tensor, router_w: torch.Tensor, topk: int,
     """
     s, Tl, _ = xs.shape
     E = router_w.shape[1]
+    if _obs.enabled:
+        count_casts(xs.dtype, router_w)
     # bf16 operands, float32 accumulation: the products of two bf16 values
     # are exact in float32
     logits = xs.float() @ router_w.to(xs.dtype).float()
@@ -105,13 +119,12 @@ def route(xs: torch.Tensor, router_w: torch.Tensor, topk: int,
     return Routing(probs, expert_idx, gate, order, slot, keep, counts)
 
 
-def _dispatch(xs, router_w, topk, C):
-    """Route and dispatch ``xs`` (s, Tl, d): ``(r, buf (s, E, C, d))``, the
-    buffer one scatter of each sorted entry's token into each shard's
+def _dispatch(xs, r, topk, C):
+    """Dispatch ``xs`` (s, Tl, d) by its routing ``r``: ``buf (s, E, C,
+    d)``, one scatter of each sorted entry's token into each shard's
     (E·C + 1) rows, the last the drop row."""
     n_shards, Tl, d = xs.shape
-    E = router_w.shape[1]
-    r = route(xs, router_w, topk, C)
+    E = r.counts.shape[1]
     s_idx = torch.arange(n_shards, device=xs.device)[:, None]
     rows = (s_idx * Tl + r.order // topk).reshape(-1)
     gathered = xs.reshape(n_shards * Tl, d)[rows]          # (s·Tl·k, d)
@@ -120,7 +133,7 @@ def _dispatch(xs, router_w, topk, C):
     buf = xs.new_zeros((n_shards * stride, d)).index_put(
         (flat_slot,), gathered)
     buf = buf.reshape(n_shards, stride, d)[:, :E * C]
-    return r, buf.reshape(n_shards, E, C, d)
+    return buf.reshape(n_shards, E, C, d)
 
 
 def _combine(out, r, topk, e0=0):
@@ -164,19 +177,31 @@ def _moe(x, router_w, w_gate, w_up, w_down, topk, capacity_factor,
     if isinstance(x, DTensor):  # a mesh: the reference's sharding sites
         return _moe_sharded(x, router_w, w_gate, w_up, w_down, topk, C,
                             n_shards)
-    r, buf = _dispatch(x.reshape(n_shards, Tl, d), router_w, topk, C)
+    xs = x.reshape(n_shards, Tl, d)
+    with _obs.span("moe.route") if _obs.enabled else _NOSPAN:
+        r = route(xs, router_w, topk, C)
+    with _obs.span("moe.dispatch") if _obs.enabled else _NOSPAN:
+        buf = _dispatch(xs, r, topk, C)
+    with _obs.span("moe.experts") if _obs.enabled else _NOSPAN:
+        out = _experts(buf, w_gate, w_up, w_down)
+    with _obs.span("moe.combine") if _obs.enabled else _NOSPAN:
+        y = _combine(out, r, topk)
+    return y.reshape(B, S, d), _aux(r, T, topk)
+
+
+def _experts(buf, w_gate, w_up, w_down):
+    """The expert products of ``buf`` (s, E, C, d), active work only, in
+    its dtype: ``out`` (s, E, C, d)."""
+    n_shards, E, C, d = buf.shape
+    dtype = buf.dtype
+    if _obs.enabled:
+        count_casts(dtype, w_gate, w_up, w_down)
     # (E, s·C, d): one batch of rows per expert
     buf = buf.transpose(0, 1).reshape(E, n_shards * C, d)
-
-    # ---- expert products (active work only), in the compute dtype
-    dtype = x.dtype
     g = torch.bmm(buf, w_gate.to(dtype))
     u = torch.bmm(buf, w_up.to(dtype))
     out = torch.bmm(F.silu(g) * u, w_down.to(dtype))        # (E, s·C, d)
-    out = out.reshape(E, n_shards, C, d).transpose(0, 1)
-
-    y = _combine(out, r, topk)
-    return y.reshape(B, S, d), _aux(r, T, topk)
+    return out.reshape(E, n_shards, C, d).transpose(0, 1)
 
 
 def _moe_sharded(x, router_w, w_gate, w_up, w_down, topk, C, n_shards):
@@ -197,8 +222,8 @@ def _moe_sharded(x, router_w, w_gate, w_up, w_down, topk, C, n_shards):
                             "batch", None, None)
 
     def dispatch(xl, rw):
-        r, buf = _dispatch(xl, rw, topk, C)
-        return (buf, *r)
+        r = route(xl, rw, topk, C)
+        return (_dispatch(xl, r, topk, C), *r)
 
     # the router is whole on every data shard, each of which routes its
     # own tokens: its gradient is a partial sum over the batch axes

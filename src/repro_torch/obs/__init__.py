@@ -1,8 +1,9 @@
 """repro_torch.obs — engine-wide tracing, metrics, and timeline export.
 
 Built on the dispatch-tag seam (:mod:`repro_torch.analysis.contracts`):
-spans absorb ``record_dispatch`` tags and the kernel builds and library
-loads of :mod:`repro_torch.kernels.build`, the metrics registry collects
+spans absorb ``record_dispatch`` tags, the kernel builds and library
+loads of :mod:`repro_torch.kernels.build` and the counts of :func:`count`
+(the serving path's weight casts), the metrics registry collects
 serve/drain/engine counters, and :mod:`repro_torch.obs.export` writes
 Chrome-trace/Perfetto JSON, JSONL logs, and Prometheus text.  Everything
 is off by default; the disabled hot path is a single ``trace.enabled``
@@ -27,14 +28,15 @@ from repro_torch.obs.export import (chrome_trace, metrics_snapshot,
 from repro_torch.obs.metrics import (REGISTRY, Counter, Gauge, Histogram,
                                      Registry, Series, counter, gauge, hist,
                                      series)
-from repro_torch.obs.trace import (Span, clear, disable, enable, events,
+from repro_torch.obs.trace import (Span, clear, clock_offset_us, count,
+                                   disable, dropped, enable, events,
                                    instant, span, tracing)
 
 __all__ = [
     "trace", "metrics", "export",
     # trace
-    "enable", "disable", "tracing", "span", "instant", "events", "clear",
-    "Span",
+    "enable", "disable", "tracing", "span", "instant", "count", "events",
+    "clear", "dropped", "clock_offset_us", "Span",
     # metrics
     "REGISTRY", "Registry", "Counter", "Gauge", "Histogram", "Series",
     "counter", "gauge", "hist", "series",

@@ -31,6 +31,10 @@ __all__ = ["chrome_trace", "write_chrome_trace", "write_jsonl",
            "metrics_snapshot", "write_metrics_snapshot", "summarize"]
 
 
+# Span keys carried in a Chrome event's ``args`` and folded back on read.
+_SPAN_KEYS = ("counts", "id", "parent", "root")
+
+
 def _events_or_ring(events: Optional[List[dict]]) -> List[dict]:
     return _trace.events() if events is None else list(events)
 
@@ -41,8 +45,9 @@ def chrome_trace(events: Optional[List[dict]] = None) -> dict:
 
     Span dicts already carry the Chrome keys (``ph``/``name``/``ts``/
     ``dur``/``tid``); this adds the ``pid`` and folds the absorbed
-    dispatch/compile attribution into ``args`` so Perfetto shows it in
-    the span detail pane.
+    dispatch/compile attribution, the counts and the span's ``id`` /
+    ``parent`` / ``root`` into ``args`` so Perfetto shows them in the span
+    detail pane.
     """
     pid = os.getpid()
     out = []
@@ -59,6 +64,9 @@ def chrome_trace(events: Optional[List[dict]] = None) -> dict:
         if ev.get("compiles"):
             args["compiles"] = ev["compiles"]
             args["compile_us"] = ev.get("compile_us", 0.0)
+        for key in _SPAN_KEYS:
+            if key in ev:
+                args[key] = ev[key]
         if args:
             ce["args"] = args
         out.append(ce)
@@ -103,6 +111,9 @@ def read_events(path: str) -> List[dict]:
             if "compiles" in args:
                 ev["compiles"] = args.pop("compiles")
                 ev["compile_us"] = args.pop("compile_us", 0.0)
+            for key in _SPAN_KEYS:
+                if key in args:
+                    ev[key] = args.pop(key)
             if args:
                 ev["args"] = args
             out.append(ev)

@@ -24,7 +24,10 @@ Three event sources feed one bounded ring buffer:
 
 * **spans** — :func:`span` context managers on a thread-local stack;
   each close appends one complete ("X") event with its duration and
-  whatever dispatch/compile activity it enclosed;
+  whatever dispatch/compile activity it enclosed, its ``id``, its
+  ``parent`` (the enclosing span's id, None at the outermost) and its
+  ``root`` (the outermost span's id, shared by every span under it: a
+  serving step's spans share their step's);
 * **dispatch tags** — :func:`enable` installs a hook into
   :func:`repro_torch.analysis.contracts.record_dispatch`, so every
   self-reported device-program launch (``admission.drain``,
@@ -36,19 +39,31 @@ Three event sources feed one bounded ring buffer:
   library load: it becomes a per-span compile count, or a loose
   ``kernels.build`` instant when no span is open.
 
+:func:`count` adds to a named count of the innermost open span (the
+weight casts of a serving step: ``weights.cast_bytes``), as dispatch tags
+do.  The ring counts the events it pushes out when full (:func:`dropped`),
+so a reader can refuse a partial trace.  Span times stay on the
+``perf_counter`` clock; :func:`clock_offset_us`, recorded when tracing is
+enabled, puts them on the Unix clock (``ts + clock_offset_us()``), the
+clock of the profiler's device timestamps up to an offset of each profiler
+session's own (tens of microseconds, now and then hundreds), which a reader
+finds from device work launched inside a span of that session.
+
 Export/summary live in :mod:`repro_torch.obs.export`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
 import time
 from collections import deque
 from typing import Deque, Dict, List, Optional
 
 __all__ = ["enabled", "enable", "disable", "tracing", "span", "instant",
-           "events", "clear", "Span", "DEFAULT_RING", "COMPILE_EVENT"]
+           "count", "events", "clear", "dropped", "clock_offset_us", "Span",
+           "DEFAULT_RING", "COMPILE_EVENT"]
 
 DEFAULT_RING = 65536
 # Name of a compile instant recorded outside any span.
@@ -59,8 +74,12 @@ COMPILE_EVENT = "kernels.build"
 enabled: bool = False
 
 _ring: Deque[dict] = deque(maxlen=DEFAULT_RING)
+_ring_lock = threading.Lock()
+_dropped = 0                        # events the full ring pushed out
 _tls = threading.local()
 _epoch_ns = time.perf_counter_ns()  # trace-relative timestamp origin
+_offset_us = 0.0                    # Unix time minus trace time, in us
+_ids = itertools.count(1)           # span ids, unique in the process
 
 
 def _stack() -> list:
@@ -74,12 +93,22 @@ def _now_us() -> float:
     return (time.perf_counter_ns() - _epoch_ns) / 1e3
 
 
+def _append(ev: dict) -> None:
+    global _dropped
+    with _ring_lock:
+        if len(_ring) == _ring.maxlen:
+            _dropped += 1
+        _ring.append(ev)
+
+
 class Span:
     """One open span: name + start time + absorbed dispatch/compile
-    activity.  Appended to the ring as a complete event on exit."""
+    activity and counts.  Appended to the ring as a complete event on
+    exit."""
 
     __slots__ = ("name", "args", "tid", "t0", "dispatches",
-                 "compiles", "compile_us")
+                 "compiles", "compile_us", "counts", "id", "parent",
+                 "root")
 
     def __init__(self, name: str, args: Optional[dict]):
         self.name = name
@@ -89,6 +118,10 @@ class Span:
         self.dispatches: Optional[Dict[str, int]] = None
         self.compiles = 0
         self.compile_us = 0.0
+        self.counts: Optional[Dict[str, int]] = None
+        self.id = next(_ids)
+        self.parent: Optional[int] = None
+        self.root = self.id
 
     def add(self, **args) -> "Span":
         """Attach result-side attributes (e.g. ``placed=n``) post-entry."""
@@ -99,7 +132,10 @@ class Span:
         return self
 
     def __enter__(self) -> "Span":
-        _stack().append(self)
+        st = _stack()
+        if st:
+            self.parent, self.root = st[-1].id, st[-1].root
+        st.append(self)
         self.t0 = _now_us()
         return self
 
@@ -109,7 +145,8 @@ class Span:
         if st and st[-1] is self:
             st.pop()
         ev = {"ph": "X", "name": self.name, "ts": self.t0,
-              "dur": t1 - self.t0, "tid": self.tid}
+              "dur": t1 - self.t0, "tid": self.tid, "id": self.id,
+              "parent": self.parent, "root": self.root}
         if self.args:
             ev["args"] = self.args
         if self.dispatches:
@@ -117,7 +154,9 @@ class Span:
         if self.compiles:
             ev["compiles"] = self.compiles
             ev["compile_us"] = self.compile_us
-        _ring.append(ev)
+        if self.counts:
+            ev["counts"] = self.counts
+        _append(ev)
         return False
 
 
@@ -155,7 +194,25 @@ def instant(name: str, **args) -> None:
           "tid": threading.get_ident(), "s": "t"}
     if args:
         ev["args"] = args
-    _ring.append(ev)
+    _append(ev)
+
+
+def count(name: str, n: int) -> None:
+    """Add ``n`` to the count ``name`` of the innermost open span on this
+    thread, or record a loose ``count:<name>`` instant when none is open.
+    No-op while disabled."""
+    if not enabled:
+        return
+    st = _stack()
+    if st:
+        sp = st[-1]
+        if sp.counts is None:
+            sp.counts = {}
+        sp.counts[name] = sp.counts.get(name, 0) + n
+    else:
+        _append({"ph": "i", "name": f"count:{name}", "ts": _now_us(),
+                 "tid": threading.get_ident(), "s": "t",
+                 "args": {"n": n}})
 
 
 # ------------------------------------------------------------------ bridges
@@ -171,9 +228,8 @@ def _on_dispatch(tag: str, n: int) -> None:
             sp.dispatches = {}
         sp.dispatches[tag] = sp.dispatches.get(tag, 0) + n
     else:
-        _ring.append({"ph": "i", "name": f"dispatch:{tag}",
-                      "ts": _now_us(), "tid": threading.get_ident(),
-                      "s": "t"})
+        _append({"ph": "i", "name": f"dispatch:{tag}", "ts": _now_us(),
+                 "tid": threading.get_ident(), "s": "t"})
 
 
 def _on_compile(source: str, event: str, seconds: float) -> None:
@@ -187,20 +243,24 @@ def _on_compile(source: str, event: str, seconds: float) -> None:
         sp.compiles += 1
         sp.compile_us += us
     else:
-        _ring.append({"ph": "i", "name": COMPILE_EVENT, "ts": _now_us(),
-                      "tid": threading.get_ident(), "s": "t",
-                      "args": {"duration_us": us, "source": source,
-                               "event": event}})
+        _append({"ph": "i", "name": COMPILE_EVENT, "ts": _now_us(),
+                 "tid": threading.get_ident(), "s": "t",
+                 "args": {"duration_us": us, "source": source,
+                          "event": event}})
 
 
 # ---------------------------------------------------------------- lifecycle
 def enable(ring: Optional[int] = None) -> None:
-    """Turn tracing on: install the dispatch and compile hooks,
-    optionally resizing the ring (which clears it)."""
-    global enabled, _ring
+    """Turn tracing on: install the dispatch and compile hooks, record
+    the clock offset, optionally resizing the ring (which clears it)."""
+    global enabled, _ring, _dropped, _offset_us
     from repro_torch.analysis import contracts
     if ring is not None and ring != _ring.maxlen:
-        _ring = deque(maxlen=int(ring))
+        with _ring_lock:
+            _ring = deque(maxlen=int(ring))
+            _dropped = 0
+    wall, now = time.time_ns(), time.perf_counter_ns()
+    _offset_us = (wall - (now - _epoch_ns)) / 1e3
     contracts._obs_dispatch_hook = _on_dispatch
     contracts._obs_compile_hook = _on_compile
     enabled = True
@@ -233,5 +293,20 @@ def events() -> List[dict]:
     return list(_ring)
 
 
+def dropped() -> int:
+    """Events pushed out of the full ring since it was cleared."""
+    return _dropped
+
+
+def clock_offset_us() -> float:
+    """Microseconds from the trace clock to the Unix clock, recorded at the
+    last :func:`enable`: an event at ``ts`` happened at Unix time ``ts +
+    clock_offset_us()`` us (the clock of ``time.time_ns``)."""
+    return _offset_us
+
+
 def clear() -> None:
-    _ring.clear()
+    global _dropped
+    with _ring_lock:
+        _ring.clear()
+        _dropped = 0

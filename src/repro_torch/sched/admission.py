@@ -507,8 +507,6 @@ class AdmissionState:
                 sp.add(placed=len(out))
                 _met.hist("admission.drain.lanes",
                           buckets=_met.COUNT_BUCKETS).observe(q)
-                _met.hist("admission.drain.placed",
-                          buckets=_met.COUNT_BUCKETS).observe(len(out))
             return out
         return self._drain(now, lanes, select)
 

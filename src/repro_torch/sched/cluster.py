@@ -1487,9 +1487,7 @@ class ClusterSim:
         if _obs.enabled:
             # Resolve the engine series once — the registry lookup (lock
             # + dict get) is too costly to repeat on every event batch.
-            _s_wastage = _met.series("cluster.wastage_gbs")
             _s_util = _met.series("cluster.utilization")
-            _s_starve = _met.series("cluster.starvation_s")
 
         try_admit(0.0)
         guard = 0
@@ -1541,10 +1539,8 @@ class ClusterSim:
             if _obs.enabled:
                 # Per-event-batch engine series keyed by sim time, fed
                 # from the host values the loop already holds.
-                _s_wastage.append(t, float(wasted.sum()))
                 _s_util.append(t, area_used / max(
                     cap_integral + cap_sum * (t - cap_last), 1e-9))
-                _s_starve.append(t, starvation_s)
                 _obs.instant("cluster.event_batch", t=t, n=len(batch))
 
         for ji in parked:

@@ -216,7 +216,6 @@ class MicroBatcher:
             self.stats["flushes"] += 1
             self.stats[kind] += 1
         if _obs.enabled:
-            _met.counter("serve.flushes").inc(cause=kind)
             _met.hist("serve.batch_size",
                       buckets=_met.COUNT_BUCKETS).observe(len(batch))
             now = self.clock()

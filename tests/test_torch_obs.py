@@ -22,9 +22,11 @@ import json
 import os
 import re
 import threading
+import time
 
 import numpy as np
 import pytest
+import torch
 
 from repro import obs as r_obs
 from repro_torch import obs
@@ -63,6 +65,7 @@ class TestTracer:
         with obs.span("a", x=1) as sp:
             sp.add(y=2)
         obs.instant("b")
+        obs.count("weights.cast_bytes", 8)
         contracts.record_dispatch("some.tag")
         contracts.record_compile("wastage.cu", "build", 0.5)
         assert obs.events() == []
@@ -113,6 +116,65 @@ class TestTracer:
         evs = obs.events()
         assert len(evs) == 16
         assert evs[-1]["args"] == {"i": 99}  # newest survive
+
+    def test_ring_counts_what_it_drops(self):
+        with obs.tracing(ring=16):
+            for i in range(10):
+                obs.instant("e", i=i)
+            assert obs.dropped() == 0
+            for i in range(90):
+                with obs.span("s"):
+                    pass
+        assert obs.dropped() == 84 and len(obs.events()) == 16
+        obs.clear()
+        assert obs.dropped() == 0
+
+    def test_span_ids_parents_and_roots(self):
+        """Each span names the span that opened it and the outermost one;
+        every span under one root shares its id."""
+        with obs.tracing():
+            with obs.span("step"):
+                with obs.span("attention"):
+                    with obs.span("inner"):
+                        pass
+                with obs.span("moe.route"):
+                    pass
+            with obs.span("next_step"):
+                pass
+        by = {e["name"]: e for e in obs.events()}
+        step = by["step"]
+        assert step["parent"] is None and step["root"] == step["id"]
+        assert by["attention"]["parent"] == step["id"]
+        assert by["inner"]["parent"] == by["attention"]["id"]
+        assert by["moe.route"]["parent"] == step["id"]
+        assert {by[n]["root"] for n in ("attention", "inner", "moe.route")} \
+            == {step["id"]}
+        nxt = by["next_step"]
+        assert nxt["parent"] is None and nxt["root"] == nxt["id"]
+        assert len({e["id"] for e in by.values()}) == 5
+
+    def test_counts_attach_to_the_innermost_span(self):
+        with obs.tracing():
+            with obs.span("outer"):
+                obs.count("weights.cast_bytes", 5)
+                with obs.span("inner"):
+                    obs.count("weights.cast_bytes", 2)
+                    obs.count("weights.cast_bytes", 3)
+                    obs.count("other", 1)
+            obs.count("weights.cast_bytes", 7)
+        by = {e["name"]: e for e in obs.events()}
+        assert by["inner"]["counts"] == {"weights.cast_bytes": 5, "other": 1}
+        assert by["outer"]["counts"] == {"weights.cast_bytes": 5}
+        loose = by["count:weights.cast_bytes"]
+        assert loose["ph"] == "i" and loose["args"] == {"n": 7}
+
+    def test_clock_offset_puts_spans_on_the_unix_clock(self):
+        with obs.tracing():
+            wall_us = time.time_ns() / 1e3
+            with obs.span("s"):
+                pass
+        (ev,) = obs.events()
+        assert abs(ev["ts"] + obs.clock_offset_us() - wall_us) < 1000.0
 
     def test_tracing_restores_prior_state(self):
         with obs.tracing():
@@ -231,6 +293,21 @@ class TestExport:
         back = obs.read_events(str(path))
         assert len(back) == 2
         assert back[0]["dispatches"] == {"admission.scatter": 2}
+
+    def test_chrome_trace_carries_counts_and_the_span_tree(self, tmp_path):
+        with obs.tracing():
+            with obs.span("model.decode_step"):
+                with obs.span("moe.experts"):
+                    obs.count("weights.cast_bytes", 64)
+        ring = obs.events()
+        path = tmp_path / "trace.perfetto.json"
+        obs.write_chrome_trace(str(path))
+        doc = json.loads(path.read_text())
+        inner = doc["traceEvents"][0]["args"]
+        assert inner["counts"] == {"weights.cast_bytes": 64}
+        assert inner["parent"] == inner["root"] == ring[1]["id"]
+        assert obs.read_events(str(path)) == [
+            dict(ev, pid=os.getpid(), cat="repro") for ev in ring]
 
     def test_jsonl_round_trip(self, tmp_path):
         _sample_ring()
@@ -509,3 +586,89 @@ def test_scenario_replay_span_table_on_the_cpu():
                      re.M)
     assert re.search(r"^cluster\.run +1 ", text, re.M)
     assert "cluster.event_batch" in text
+
+
+# ------------------------------------------------- the LM serving path's spans
+def _olmoe():
+    """The olmoe family at smoke size: bf16 compute over float32 masters,
+    so every parameter cast at its use changes dtype."""
+    from repro_torch import configs
+    from repro_torch.models import init_params
+    cfg = configs.smoke_config("olmoe-1b-7b")
+    assert (cfg.dtype, cfg.param_dtype) == ("bfloat16", "float32")
+    return cfg, init_params(cfg, torch.Generator().manual_seed(0),
+                            device=CPU)
+
+
+# the parameters cast to the compute dtype at every use
+CAST = ("wq", "wk", "wv", "wo", "router", "w_gate", "w_up", "w_down", "head")
+
+
+class TestServingSpans:
+    def _serve(self, cfg, model, traced):
+        """A prefill and one decode step: ``(logits, cache)`` of each."""
+        from repro_torch.models import decode_step, prefill
+        toks = torch.randint(0, cfg.vocab, (2, 12),
+                             generator=torch.Generator().manual_seed(1))
+        pos = torch.full((2,), 12, dtype=torch.int32)
+
+        def run():
+            lp, cache = prefill(model, cfg, {"tokens": toks}, capacity=16)
+            first = {k: v.clone() for k, v in cache.items()}
+            ld, cache = decode_step(model, cfg, {"tokens": toks[:, -1]},
+                                    cache, pos)
+            return (lp, first), (ld, cache)
+
+        if traced:
+            with obs.tracing():
+                return run()
+        return run()
+
+    def test_decode_step_spans_and_casts(self):
+        cfg, model = _olmoe()
+        self._serve(cfg, model, traced=True)
+        evs = [e for e in obs.events() if e["ph"] == "X"]
+        L = cfg.n_layers
+        want = sum(p.numel() for n, p in model.named_parameters()
+                   if n.rsplit(".", 1)[-1] in CAST) * 2   # bf16 bytes
+        (root,) = [e for e in evs if e["name"] == "model.decode_step"]
+        assert root["parent"] is None and root["args"] == {"B": 2}
+        under = [e for e in evs if e["root"] == root["id"]]
+        names = [e["name"] for e in under]
+        assert names.count("attention") == L
+        for part in ("route", "dispatch", "experts", "combine"):
+            assert names.count(f"moe.{part}") == L
+        assert len(under) == 1 + 5 * L
+        # the attention and moe spans are the root's children, and the
+        # four moe spans of a block follow one another
+        assert all(e["parent"] == root["id"] for e in under if e is not root)
+        moe = sorted((e for e in under if e["name"].startswith("moe.")),
+                     key=lambda e: e["ts"])
+        for a, b in zip(moe, moe[1:]):
+            assert a["ts"] + a["dur"] <= b["ts"]
+        assert sum(e.get("counts", {}).get("weights.cast_bytes", 0)
+                   for e in under) == want
+        # the prefill has no span of its own: its blocks' spans are roots,
+        # and the head's cast, outside them, a loose count
+        pre = [e for e in evs if e["root"] != root["id"]]
+        assert all(e["parent"] is None and e["root"] == e["id"] for e in pre)
+        assert sorted(e["name"] for e in pre) == sorted(
+            ["attention"] * L + [f"moe.{p}" for p in
+                                 ("route", "dispatch", "experts",
+                                  "combine")] * L)
+        loose = [e["args"]["n"] for e in obs.events()
+                 if e["name"] == "count:weights.cast_bytes"]
+        assert sum(e.get("counts", {}).get("weights.cast_bytes", 0)
+                   for e in pre) + sum(loose) == want
+        assert len(loose) == 1          # the head
+
+    def test_traced_serving_is_bitwise_untraced(self):
+        cfg, model = _olmoe()
+        base = self._serve(cfg, model, traced=False)
+        assert obs.events() == []
+        traced = self._serve(cfg, model, traced=True)
+        for (lb, cb), (lt, ct) in zip(base, traced):
+            assert torch.equal(lb, lt)
+            assert set(cb) == set(ct)
+            for k in cb:
+                assert torch.equal(cb[k], ct[k]), k
