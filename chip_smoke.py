@@ -224,6 +224,23 @@ Phases (any failure exits non-zero; nothing is caught):
    collective bytes by op and the dominant term, each ``ok``.  Records go
    to ``build/dryrun_torch/``.
 
+17. decode attention (``kernels.decode_attention``): the kernel against
+   its plain version on the tests' cases (f32 and bf16: G of 1, 6, 8 and
+   12, a ring cache under a window, empty slots, a row with no valid slot,
+   caps off the tile, hd 80 and 160; each also writing this token's K/V
+   rows first, held bitwise), two calls bitwise equal at a split
+   cache, then timed at the olmoe cells' decode shapes (B 32 at caps 1792
+   and 960, B 8 at 3853; G 1, hd 128, every slot valid) beside its bound
+   (``ops.io_bytes``), the plain version and, as ``library_ms``,
+   ``scaled_dot_product_attention`` with an explicit mask on transposed
+   copies of the same inputs (the port never calls it), and a layer's
+   write + attention both ways on the cache in place, device ms and host
+   us: the kernel's one call against ``append_kv``, the mask and SDPA on
+   strided views: the ``decode_attention`` record.  Phases 9 and 15 count
+   its launches, one per attention layer a decode step; the record's
+   ``launches`` is phase 15's olmoe count.  ``python3 -c "import chip_smoke;
+   chip_smoke.decode_attention_bench()"`` runs it alone with its build.
+
 The card's ``nvidia-smi`` line comes two lines before the end, then
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -265,6 +282,8 @@ SOURCES.update(ssd_bwd=SOURCES["ssd"],
                flash_attention_bwd=SOURCES["flash_attention"])
 ADMISSION = "src/repro_torch/kernels/admission/csrc/admission.cu"
 SOURCES.update(admit_columns=ADMISSION, admit_drain=ADMISSION)
+SOURCES["decode_attention"] = ("src/repro_torch/kernels/decode_attention/"
+                               "csrc/decode_attention.cu")
 # The backward kernels have no Pallas counterpart: the reference trains
 # through the XLA forms of the two layers and JAX's autodiff of them.
 REPLACES = {"oom_probe": "src/repro/kernels/wastage/kernel.py:67",
@@ -279,7 +298,9 @@ REPLACES = {"oom_probe": "src/repro/kernels/wastage/kernel.py:67",
             "flash_attention_bwd": "src/repro/models/attention.py:92",
             # the reference's jitted admission programs (XLA, not Pallas)
             "admit_columns": "src/repro/sched/admission.py:100",
-            "admit_drain": "src/repro/sched/admission.py:166"}
+            "admit_drain": "src/repro/sched/admission.py:166",
+            # no TPU kernel: the reference's decode is a plain einsum
+            "decode_attention": "none (src/repro/models/attention.py:146)"}
 KW = dict(seed=0, train_frac=0.5, k=4, machine_memory=128.0)  # the cells
 ARCH = "zamba2-2.7b"
 SERVE_BATCHES = ((4, 2048), (3, 1000))  # (requests, prompt tokens)
@@ -938,16 +959,30 @@ def phase_shape_cases(ssd_shapes, flash_shapes):
 
 # ------------------------------------------------------------- phase 7
 def _short(mangled):
-    """``_ZN3fa314flash_fwd_bf16ILi80EEEv...`` -> ``flash_fwd_bf16<80>``."""
+    """``_ZN3fa314flash_fwd_bf16ILi80EEEv...`` -> ``flash_fwd_bf16<80>``;
+    type arguments by name (``scores_kernel<__nv_bfloat16,1,1>``)."""
     rest, name = mangled[3:], mangled
     while rest[:1].isdigit():  # <length><identifier> pairs of the nesting
         n = re.match(r"\d+", rest).group()
         name, rest = rest[len(n):len(n) + int(n)], rest[len(n) + int(n):]
     if rest.startswith("I"):
-        args = re.match(r"I((?:L[ib]-?\d+E)+)E", rest)
-        if args:
-            name += "<" + ",".join(re.findall(r"L[ib](-?\d+)E",
-                                              args.group(1))) + ">"
+        rest, args = rest[1:], []
+        while rest and rest[0] != "E":
+            m = re.match(r"L[ib](-?\d+)E", rest)
+            if m:
+                args.append(m.group(1))
+            elif rest[0] == "f":
+                m = re.match("f", rest)
+                args.append("float")
+            elif rest[0].isdigit():
+                n = re.match(r"\d+", rest).group()
+                m = re.match(rf"\d+\w{{{n}}}", rest)
+                args.append(m.group()[len(n):])
+            else:
+                break
+            rest = rest[m.end():]
+        if args and rest[:1] == "E":
+            name += "<" + ",".join(args) + ">"
     return name
 
 
@@ -1000,6 +1035,7 @@ def serve(model, cfg, batches, new_tokens, seed, feed=None):
     MoE model's record holds each layer's ``moe_dropped_frac`` of the
     prefill (a forward hook on each block; decode calls ``decode``).
     Returns one record per batch."""
+    from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.ssd import ops as sops
     from repro_torch.runtime import make_decode_step, make_prefill_step
@@ -1030,6 +1066,7 @@ def serve(model, cfg, batches, new_tokens, seed, feed=None):
         finite = torch.isfinite(logits).all()
         tok = logits[:, -1].argmax(-1)
         zeros = torch.zeros((Bsz, 1, cfg.d_model), device="cuda")
+        decode_before = dops.LAUNCHES["decode_attention"]
         for t in range(new_tokens):
             pos = torch.full((Bsz,), S + t, dtype=torch.int32, device="cuda")
             db = {"tokens": tok} if feed is None else {"embeds": zeros}
@@ -1050,6 +1087,8 @@ def serve(model, cfg, batches, new_tokens, seed, feed=None):
                     "decode_launches": {"ssd": decode_launches[0],
                                         "flash_attention":
                                             decode_launches[1]},
+                    "decode_attention_launches":
+                        dops.LAUNCHES["decode_attention"] - decode_before,
                     "finite": bool(finite), "last_tokens": tok.tolist(),
                     "prefill_memory": prefill_memory})
         if dropped:
@@ -3016,8 +3055,19 @@ def check_served(records, want_flash, what):
                                  f"{want_flash} flash_attention")
         if any(r["decode_launches"].values()):
             raise AssertionError(f"{what}: decode launched a prefill kernel")
+        check_decode_launches(r, want_flash, what)
         if not r["finite"]:
             raise AssertionError(f"{what}: non-finite logits")
+
+
+def check_decode_launches(r, layers, what):
+    """Every attention layer of every decode step through the decode
+    kernel: one call a layer a step."""
+    want = layers * r["new_tokens"]
+    if r["decode_attention_launches"] != want:
+        raise AssertionError(f"{what}: {r['decode_attention_launches']} "
+                             f"decode_attention calls in {r['new_tokens']}"
+                             f" decode steps, want {want}")
 
 
 def host_gb():
@@ -3047,6 +3097,7 @@ def olmoe_serving(rec_flash):
     loop, the profile of one 4 x 2048 prefill, and one MoE block twice on
     the card, bitwise."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.ssd import ops as sops
     from repro_torch.models import init_params
@@ -3060,12 +3111,13 @@ def olmoe_serving(rec_flash):
     log(f"phase 15: {OLMOE} init_params on the card: {n_params} parameters "
         f"in {time.perf_counter() - t0:.2f} s")
     serve(model, cfg, ((1, 256),), 2, seed=99)  # warm-up, not counted
-    for o in (sops, fops):
+    for o in (sops, fops, dops):
         o.reset_launches()
     with rec_flash:
         records = serve(model, cfg, SERVE_BATCHES, NEW_TOKENS, seed=0)
     launches = {"ssd": sops.LAUNCHES["ssd"],
-                "flash_attention": fops.LAUNCHES["flash_attention"]}
+                "flash_attention": fops.LAUNCHES["flash_attention"],
+                "decode_attention": dops.LAUNCHES["decode_attention"]}
     check_served(records, cfg.n_layers, OLMOE)
     records[0]["prefill_warm"] = warm_prefill(model, cfg, *SERVE_BATCHES[0])
     prof = profile_prefill(model, cfg, *SERVE_BATCHES[0], kinds=MOE_KINDS)
@@ -3631,6 +3683,158 @@ def step_ab(parent):
     print(json.dumps({"step_ab": recs}), flush=True)
 
 
+# ------------------------------------------------------------- phase 17
+# (B, cap) of the olmoe cells' decode (perfbench/traffic: the decode cell's
+# caps S + 256 at 32 requests, the prefill cell's longest S + 13 at 8)
+DECODE_TIMED = ((32, 1792), (32, 960), (8, 3853))
+DECODE_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}  # sum order only
+
+
+def host_us(fn, calls=50):
+    """Host microseconds a call of ``fn``: ``calls`` calls issued behind a
+    device sleep, so the host never waits for the device."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def decode_attention_phase(err, launches=None):
+    """Phase 17 (see the module docstring): the ``decode_attention``
+    record; ``launches`` is the main path's count (phase 15's olmoe
+    serve), the timing loop's own calls go under ``timed_launches``.
+    Beside the kernel, SDPA with an explicit mask on transposed copies
+    (``library_ms``), and a layer's whole route both ways on the caches in
+    place (this token's write, then attention): the kernel's one call
+    (``route_ms``, ``route_host_us``) against ``append_kv``, the mask and
+    SDPA on strided views of the cache (``library_route_ms``,
+    ``library_route_host_us``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.models.attention import append_kv
+    t0 = time.perf_counter()
+    err.setdefault("decode_attention", 0.0)
+    checked = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for seed, (B, cap, H, K, hd, kind, window) in enumerate(
+                dops.ref.CHECKED):
+            if hd * dtype.itemsize > dops.MAX_ROW_BYTES:
+                continue
+            args = dops.ref.case(seed, B, cap, H, K, hd, kind, dtype, "cuda")
+            got = dops.decode_attention(*args, window=window)
+            want = dops.ref.decode_attention(*args, window=window)
+            what = f"decode_attention {dtype} {(B, cap, H, K, hd, kind)}"
+            _close(got.float(), want.float(), (DECODE_TOL[dtype],) * 2,
+                   what, err, "decode_attention")
+            # with this token's K/V rows: written bitwise, then attended to
+            q, k, v, kvpos, pos = args
+            new = torch.randn((2, B, 1, K, hd), device="cuda").to(dtype)
+            k2, v2 = k.clone(), v.clone()
+            append_kv(k2, v2, new[0], new[1], pos)
+            want = dops.ref.decode_attention(q, k2, v2, kvpos, pos,
+                                             window=window)
+            got = dops.decode_attention(q, k, v, kvpos, pos, window=window,
+                                        k_new=new[0], v_new=new[1])
+            if not (torch.equal(k, k2) and torch.equal(v, v2)):
+                raise AssertionError(f"{what}: new rows written wrong")
+            _close(got.float(), want.float(), (DECODE_TOL[dtype],) * 2,
+                   what + " with new rows", err, "decode_attention")
+            checked += 2
+    for B, cap in ((1, 1792), (8, 3853)):
+        args = dops.ref.case(7, B, cap, 16, 16, 128, "fill", torch.bfloat16,
+                             "cuda")
+        if not torch.equal(dops.decode_attention(*args),
+                           dops.decode_attention(*args)):
+            raise AssertionError(f"decode_attention B={B} cap={cap}: two "
+                                 f"calls differ")
+    log(f"phase 17: decode_attention == plain on {checked} cases, max abs "
+        f"err {err['decode_attention']:.3g}; bitwise repeat at B 1 cap 1792 "
+        f"and B 8 cap 3853")
+    cases = []
+    for B, cap in DECODE_TIMED:
+        H = K = 16
+        hd = 128
+        args = dops.ref.case(B + cap, B, cap, H, K, hd, "full",
+                             torch.bfloat16, "cuda")
+        q, k, v, kvpos, pos = args
+        before = dops.LAUNCHES["decode_attention"]
+        ms = time_ms(lambda: dops.decode_attention(*args))
+        launched = dops.LAUNCHES["decode_attention"] - before
+        plain_ms = time_ms(lambda: dops.ref.decode_attention(*args), reps=5)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        mask = ((kvpos >= 0) & (kvpos <= pos[:, None]))[:, None, None, :]
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=H != K))
+        kn, vn = torch.randn((2, B, 1, K, hd), device="cuda").to(q.dtype)
+
+        def route():
+            return dops.decode_attention(q, k, v, kvpos, pos, k_new=kn,
+                                         v_new=vn)
+
+        def library_route():
+            append_kv(k, v, kn, vn, pos)
+            m = ((kvpos >= 0) & (kvpos <= pos[:, None]))[:, None, None, :]
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=m, enable_gqa=H != K).transpose(1, 2)
+
+        routes = {"route_ms": time_ms(route),
+                  "library_route_ms": time_ms(library_route),
+                  "route_host_us": host_us(route),
+                  "library_route_host_us": host_us(library_route)}
+        nbytes = dops.io_bytes(B, cap, H, K, hd, 2)
+        nops = dops.flops(B, H, cap, hd)
+        bound_ms, bound_by = _bound(nbytes, nops)
+        split = dops.plan(B, K, H // K, cap, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        cases.append({"shape": [B, cap, H, K, hd], "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": lib_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "bytes": nbytes, "ops": nops, "split_len": split,
+                      "n_split": -(-cap // split),
+                      "timed_launches": launched, **routes})
+        log(f"phase 17: decode_attention B {B} cap {cap} G 1 hd 128 bf16: "
+            f"{ms:.4f} ms (plain {plain_ms:.4f}, library {lib_ms:.4f}, "
+            f"bound {bound_ms:.4f} by {bound_by}, {bound_ms / ms:.1%} of "
+            f"it; {-(-cap // split)} splits of {split}); a layer's write + "
+            f"attention: kernel {routes['route_ms']:.4f} ms, host "
+            f"{routes['route_host_us']:.1f} us; append_kv + mask + SDPA on "
+            f"the cache's views {routes['library_route_ms']:.4f} ms, host "
+            f"{routes['library_route_host_us']:.1f} us")
+        del args, q, k, v, qt, kt, vt, kn, vn
+    first = cases[0]
+    entry = _entry("decode_attention", {"decode_attention": launches}, err,
+        first["ms"], first["plain_ms"],
+        first["library_ms"], first["bytes"], first["ops"],
+        "olmoe decode, q (32, 1, 16, 128), caches (32, 1792, 16, 128) bf16",
+        cases=cases)
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s")
+    return [entry]
+
+
+def decode_attention_bench():
+    """Phase 17 alone on the card, with its build."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import ops as dops
+    log(device_line())
+    path, secs = build.build_all([dops.SOURCE])["decode_attention"]
+    log(f"phase 17: built {os.path.relpath(path, ROOT)} in {secs:.2f} s; "
+        f"registers and [spill store, spill load] bytes: " + json.dumps(
+            kernel_report(dops.SOURCE, path, keep=lambda name: "kernel"
+                          in name)))
+    err = dict.fromkeys(REPLACES, 0.0)
+    print(json.dumps({"kernels": decode_attention_phase(err)}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3642,6 +3846,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels.admission import ops as aops
+    from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.ssd import ops as sops
     from repro_torch.kernels.wastage import ops
@@ -3659,7 +3864,7 @@ def main() -> int:
     # 2. build: every source at once, one nvcc each
     t0 = time.perf_counter()
     built = build.build_all([ops.SOURCE, sops.SOURCE, fops.SOURCE,
-                             aops.SOURCE])
+                             aops.SOURCE, dops.SOURCE])
     build_wall = time.perf_counter() - t0
     path, secs = built["wastage"]
     log(f"phase 2: built {os.path.relpath(path, ROOT)} in {secs:.2f} s; "
@@ -3740,12 +3945,16 @@ def main() -> int:
     # 7. the LM kernels, built beside the wastage kernels in phase 2
     log("phase 7: built " + ", ".join(
         f"{os.path.relpath(built[n][0], ROOT)} in {built[n][1]:.2f} s"
-        for n in ("ssd", "flash_attention")) +
-        f" (all three sources in parallel: {build_wall:.2f} s wall)")
+        for n in ("ssd", "flash_attention", "decode_attention")) +
+        f" (all five sources in parallel: {build_wall:.2f} s wall)")
     for name, src in (("ssd", sops.SOURCE), ("flash_attention", fops.SOURCE)):
         log(f"phase 7: {name} bf16 kernels (registers, [spill store, spill "
             f"load] bytes, HGMMA instructions): " + json.dumps(
                 kernel_report(src, built[name][0])))
+    log("phase 7: decode_attention kernels (registers, [spill store, spill "
+        "load] bytes): " + json.dumps(kernel_report(
+            dops.SOURCE, built["decode_attention"][0],
+            keep=lambda name: "kernel" in name)))
 
     # 8. LM kernel parity on the tests' sweeps, f32 and bf16
     flash, ssd = lm_parity_cases()
@@ -3765,13 +3974,14 @@ def main() -> int:
     log(f"phase 9: {ARCH} init_params on the card: {n_params} parameters "
         f"in {time.perf_counter() - t0:.2f} s")
     serve(model, cfg, ((1, 256),), 2, seed=99)  # warm-up, not counted
-    for o in (ops, sops, fops):
+    for o in (ops, sops, fops, dops):
         o.reset_launches()
     rec_ssd, rec_flash = lm_recorders()
     with rec_ssd, rec_flash:
         records = serve(model, cfg, SERVE_BATCHES, NEW_TOKENS, seed=0)
     lm_launches = {"ssd": sops.LAUNCHES["ssd"],
-                   "flash_attention": fops.LAUNCHES["flash_attention"]}
+                   "flash_attention": fops.LAUNCHES["flash_attention"],
+                   "decode_attention": dops.LAUNCHES["decode_attention"]}
     want = {"ssd": cfg.n_layers,
             "flash_attention": cfg.n_layers // cfg.shared_attn_every}
     for r in records:
@@ -3786,6 +3996,7 @@ def main() -> int:
                                  f", want one per block: {want}")
         if any(r["decode_launches"].values()):
             raise AssertionError("decode launched a prefill kernel")
+        check_decode_launches(r, want["flash_attention"], ARCH)
         if not r["finite"]:
             raise AssertionError("non-finite logits")
     if min(lm_launches.values()) <= 0:
@@ -3905,6 +4116,10 @@ def main() -> int:
 
     # 16. the dry run and the roofline against the steps the card ran
     dry_run_phase({"serve": records, "train": train, **fam})
+
+    # 17. decode attention: parity, then timed at the olmoe cells' shapes
+    kernels += decode_attention_phase(
+        err, fam["olmoe"]["launches"]["decode_attention"])
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

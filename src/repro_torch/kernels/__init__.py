@@ -5,10 +5,12 @@
 * ``ssd`` — the Mamba2 chunked SSD scan (``csrc/ssd.cu``);
 * ``flash_attention`` — causal / windowed GQA attention forward
   (``csrc/flash_attention.cu``);
+* ``decode_attention`` — one query token against the KV cache, read once
+  in place (``csrc/decode_attention.cu``);
 * ``admission`` — the cluster's float64 admission programs: the fits
   columns and a whole greedy drain in one launch (``csrc/admission.cu``).
 
-All four are CUDA C++ for ``sm_90a``.  Each kernel ships ``csrc/`` (the
+All five are CUDA C++ for ``sm_90a``.  Each kernel ships ``csrc/`` (the
 CUDA source), ``ops.py`` (the checked wrapper with its launch count) and
 ``ref.py`` (the plain PyTorch version, used for CPU tensors and as the
 kernel's oracle); :mod:`repro_torch.kernels.build` compiles each source with

@@ -63,6 +63,7 @@ from torch.utils.flop_counter import flop_registry
 
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.kernels import dryrun as kernel_dryrun
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.launch import mesh as mesh_mod
@@ -108,6 +109,12 @@ def _kernel_io(func, args) -> Optional[int]:
         B, Sq, H, hd = q.shape
         return flash_ops.io_bytes(B, Sq, k.shape[1], H, k.shape[2], hd,
                                   q.element_size(), backward=True)
+    if pkt is torch.ops.repro_torch.decode_attention:
+        q, k = args[0], args[1]
+        B, _, H, hd = q.shape
+        return decode_ops.io_bytes(B, k.shape[1], H, k.shape[2], hd,
+                                   q.element_size(),
+                                   append=args[6] is not None)
     if pkt in (torch.ops.repro_torch.ssd, torch.ops.repro_torch.ssd_bwd):
         X, Bm = args[0], args[2]
         B, S, H, P = X.shape
@@ -122,6 +129,10 @@ def _kernel_scratch(func, args) -> int:
     if pkt is torch.ops.repro_torch.flash_attention_bwd:
         B, Sq, H, _ = args[0].shape
         return flash_ops.bwd_scratch_bytes(B, Sq, H)
+    if pkt is torch.ops.repro_torch.decode_attention:
+        q, k = args[0], args[1]
+        B, _, H, hd = q.shape
+        return decode_ops.scratch_bytes(B, H, k.shape[2], k.shape[1], hd)
     if pkt in (torch.ops.repro_torch.ssd, torch.ops.repro_torch.ssd_bwd):
         X, Bm = args[0], args[2]
         B, S, H, P = X.shape

@@ -4,16 +4,19 @@ Counterpart of the reference's ``models/attention.py``.  Prefill attention
 is :func:`repro_torch.kernels.flash_attention.ops.flash_attention`, the
 counterpart of the reference's ``chunked_gqa_attention`` (with
 ``q_offset`` 0, as prefill calls it): the hand-written kernel on CUDA, its
-plain float32 version on the CPU.  There is no ``attn_impl`` switch.
-Single-token decode is plain PyTorch, as in the reference, with the same
-finite ``-1e30`` mask.  The reference's arrays are immutable; here
-:func:`append_kv` and :func:`update_positions` write into the cache in
-place, so a decode step moves one token's K/V instead of copying the cache.
-On DTensors (a mesh) each device works on its own shard (``local_map``):
-its batch rows, its KV heads and, for a sequence-sharded cache
-(flash-decoding style), the slots it holds; decode attention over such a
-cache combines the devices' partial softmaxes (an all-reduce of the row
-maximum, then of the rescaled sums).
+plain float32 version on the CPU.  Single-token decode is
+:func:`repro_torch.kernels.decode_attention.ops.decode_attention`: on CUDA
+a hand-written kernel that reads the cache once, in place; on the CPU the
+reference's einsum-softmax-einsum with its finite ``-1e30`` mask
+(``kernels/decode_attention/ref.py``).  There is no ``attn_impl`` switch.
+The reference's arrays are immutable; here :func:`append_kv` and
+:func:`update_positions` write into the cache in place, so a decode step
+moves one token's K/V instead of copying the cache.  On DTensors (a mesh)
+each device works on its own shard (``local_map``): its batch rows, its KV
+heads and, for a sequence-sharded cache (flash-decoding style), the slots
+it holds; decode attention over such a cache combines the devices' partial
+softmaxes (an all-reduce of the row maximum, then of the rescaled sums),
+in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -24,46 +27,35 @@ import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention.ref import (scores as _scores,
+                                                      write as _write)
 from repro_torch.launch.partitioning import shard_index
 
 __all__ = ["decode_gqa_attention", "append_kv", "update_positions"]
 
-_NEG_INF = -1e30
-
 
 def decode_gqa_attention(q: torch.Tensor, cache_k: torch.Tensor,
                          cache_v: torch.Tensor, kv_positions: torch.Tensor,
-                         pos: torch.Tensor, *,
-                         window: Optional[int] = None) -> torch.Tensor:
+                         pos: torch.Tensor, *, window: Optional[int] = None,
+                         k_new: Optional[torch.Tensor] = None,
+                         v_new: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One query token against a (possibly ring) KV cache.
 
     q (B,1,H,hd); cache_k/v (B,cap,K,hd); kv_positions (B,cap), -1 for an
-    empty slot; pos (B,) the current position.  Returns (B,1,H,hd).
+    empty slot; pos (B,) the current position.  Returns (B,1,H,hd).  With
+    ``k_new`` / ``v_new`` (B,1,K,hd), this token's K/V are first written
+    at ``pos % capacity`` (:func:`append_kv`; on plain tensors inside the
+    decode-attention call).
     """
     if isinstance(cache_k, DTensor):
+        if k_new is not None:
+            append_kv(cache_k, cache_v, k_new, v_new, pos)
         return _sharded_decode(q, cache_k, cache_v, kv_positions, pos,
                                window)
-    B, _, H, hd = q.shape
-    s = _scores(q, cache_k, kv_positions, pos, window)
-    m = torch.amax(s, dim=-1, keepdim=True)
-    p = torch.exp(s - m)
-    p = p / torch.sum(p, dim=-1, keepdim=True)
-    out = torch.einsum("bkgs,bskh->bkgh", p.to(q.dtype), cache_v)
-    return out.reshape(B, 1, H, hd)
-
-
-def _scores(q, cache_k, kv_positions, pos, window):
-    """Masked float32 scores (B, K, G, cap) of one query token."""
-    B, _, H, hd = q.shape
-    K = cache_k.shape[2]
-    # scaled in q's dtype, the scale rounded to it first, as the reference
-    scale = torch.full((), 1.0 / (hd ** 0.5), dtype=q.dtype, device=q.device)
-    qg = (q * scale).reshape(B, K, H // K, hd)
-    s = torch.einsum("bkgh,bskh->bkgs", qg.float(), cache_k.float())
-    mask = (kv_positions >= 0) & (kv_positions <= pos[:, None])
-    if window is not None:
-        mask = mask & (kv_positions > pos[:, None] - window)
-    return torch.where(mask[:, None, None, :], s, _NEG_INF)
+    return decode_ops.decode_attention(q, cache_k, cache_v, kv_positions, pos,
+                                       window=window, k_new=k_new,
+                                       v_new=v_new)
 
 
 def _sharded_decode(q, cache_k, cache_v, kv_positions, pos, window):
@@ -139,24 +131,6 @@ def update_positions(positions: torch.Tensor, pos: torch.Tensor) -> None:
     if isinstance(positions, DTensor):
         return _sharded_write(positions, (positions,), (pos[:, None],), pos)
     _write(positions.shape[1], 0, (positions,), (pos,), pos)
-
-
-def _write(cap: int, offset: int, caches, news, pos) -> None:
-    """``cache[b, pos[b] % cap - offset] = new[b]`` for each cache, where
-    that slot lies in this cache's ``offset .. offset + len`` (all of them
-    when ``offset`` is 0 and the cache is whole)."""
-    slot = (pos % cap).long() - offset
-    n = caches[0].shape[1]
-    b_idx = torch.arange(caches[0].shape[0], device=caches[0].device)
-    if offset == 0 and n == cap:
-        for c, t in zip(caches, news):
-            c[b_idx, slot] = t.to(c.dtype)
-        return
-    mine = (slot >= 0) & (slot < n)
-    slot = torch.clamp(slot, 0, n - 1)
-    for c, t in zip(caches, news):
-        keep = mine.reshape((-1,) + (1,) * (t.dim() - 1))
-        c[b_idx, slot] = torch.where(keep, t.to(c.dtype), c[b_idx, slot])
 
 
 def _sharded_write(like: DTensor, caches, news, pos) -> None:

@@ -28,7 +28,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.kernels.flash_attention import ops as attn_ops
 from repro_torch.launch.partitioning import gathered, logical_constraint
-from repro_torch.models.attention import append_kv, decode_gqa_attention
+from repro_torch.models.attention import decode_gqa_attention
 from repro_torch.models.layers import (apply_mrope, apply_rope, rmsnorm,
                                       swiglu)
 from repro_torch.models.mamba2 import mamba2_decode, mamba2_mixer
@@ -224,9 +224,8 @@ def _attn_decode(p, cfg, h, pos, cache_k, cache_v, kv_positions, window):
         positions = pos[:, None, None].expand(pos.shape[0], 1, 3)
     q = _rope(cfg, q, positions)
     k = _rope(cfg, k, positions)
-    append_kv(cache_k, cache_v, k, v, pos)
     out = decode_gqa_attention(q, cache_k, cache_v, kv_positions, pos,
-                               window=window)
+                               window=window, k_new=k, v_new=v)
     out = out.reshape(h.shape[0], 1, cfg.n_heads * cfg.hd)
     return _residual(resid + out @ gathered(p.wo, h.dtype))
 

@@ -18,6 +18,12 @@ port's plain forward (which also covers a row that sees no key, where the
 XLA form's online softmax over the visited chunks differs from the dense
 softmax by design).
 
+Decode attention (``kernels.decode_attention``; the reference has no
+kernel there, its decode is an einsum): on the CPU the wrapper takes the
+plain version, held to the reference's ``decode_gqa_attention`` at the
+same tolerances; the wrapper's checks, plan, fake and FLOP rule are held
+here, the kernel on the card.
+
 The CUDA kernels have no CPU mode: the ``cuda``-marked tests hold them
 against the plain versions on the card and skip here.  What the bf16
 kernels compute is rehearsed here instead: plain torch emulations of their
@@ -37,8 +43,11 @@ from repro.kernels import ssd_pallas
 from repro.kernels.flash_attention.ref import mha_reference
 from repro.kernels.ssd.ref import ssd_reference
 from repro.models.attention import chunked_gqa_attention
+from repro.models.attention import decode_gqa_attention as j_decode
 from repro.models.mamba2 import ssd_chunked
 from repro_torch.kernels import build
+from repro_torch.kernels import dryrun as kernel_dryrun
+from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 
@@ -112,6 +121,33 @@ class TestFlashAttention:
     def test_zamba2_head_dim(self):
         """hd = 80 (zamba2-2.7b), which the TPU wrapper pads to 128."""
         _check_flash(*_qkv(6, 1, 96, 96, 4, 4, 80))
+
+
+# ------------------------------------------------------- decode attention
+_decode_case = decode_ops.ref.case  # seeded decode inputs
+
+
+class TestDecodeAttention:
+    @pytest.mark.parametrize("B,cap,H,K,hd,kind,window", [
+        (2, 40, 4, 4, 16, "fill", None),     # olmoe's G = 1
+        (2, 40, 8, 1, 32, "full", None),     # MQA
+        (3, 33, 6, 2, 16, "ring", 20),       # a ring cache under a window
+        (2, 17, 4, 2, 16, "none", None),     # a row with no valid slot
+    ])
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_plain_matches_reference(self, B, cap, H, K, hd, kind, window,
+                                     dtype):
+        """The plain version (what CPU tensors take) against the
+        reference's ``decode_gqa_attention`` on the same inputs."""
+        tdtype, tol = getattr(torch, dtype), (F32 if dtype == "float32"
+                                              else BF16)
+        args = _decode_case(B * cap + H, B, cap, H, K, hd, kind, tdtype)
+        got = decode_ops.decode_attention(*args, window=window)
+        jargs = [jnp.asarray(_f32(a), jnp.dtype(dtype)) for a in args[:3]]
+        want = j_decode(*jargs, jnp.asarray(args[3].numpy()),
+                        jnp.asarray(args[4].numpy()), window=window)
+        assert got.dtype == tdtype and got.shape == args[0].shape
+        np.testing.assert_allclose(_f32(got), _f32(want), **tol)
 
 
 # --------------------------------------------------------------------- SSD
@@ -336,6 +372,115 @@ class TestWrapperContract:
         with pytest.raises(ValueError):
             flash_ops.flash_attention(q, k, v, window=0)
 
+    def test_decode_cpu_takes_plain_path(self):
+        """A CPU tensor goes to the plain version, bitwise, through the
+        model's entry point too; with this token's K/V rows, after the
+        write ``append_kv`` makes.  No kernel launch is counted."""
+        from repro_torch.models.attention import (append_kv,
+                                                  decode_gqa_attention)
+        decode_ops.reset_launches()
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _decode_case(70, 2, 24, 4, 2, 16, "ring", dtype=dtype)
+            want = decode_ops.ref.decode_attention(*args, window=9)
+            for fn in (decode_ops.decode_attention, decode_gqa_attention):
+                assert torch.equal(fn(*args, window=9), want)
+            q, k, v, kvpos, pos = args
+            new = torch.randn((2, 2, 1, 2, 16)).to(dtype)
+            k2, v2 = k.clone(), v.clone()
+            append_kv(k2, v2, new[0], new[1], pos)
+            want = decode_ops.ref.decode_attention(q, k2, v2, kvpos, pos)
+            for fn in (decode_ops.decode_attention, decode_gqa_attention):
+                k3, v3 = k.clone(), v.clone()
+                got = fn(q, k3, v3, kvpos, pos, k_new=new[0], v_new=new[1])
+                assert torch.equal(got, want)
+                assert torch.equal(k3, k2) and torch.equal(v3, v2)
+        assert decode_ops.LAUNCHES["decode_attention"] == 0
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_decode_fake_and_flop_rule(self, dtype):
+        """Under a dry run the wrapper calls the operator: its fake gives
+        the output's shape and dtype, and ``FlopCounterMode`` counts the
+        FLOP rule, which equals its count of the plain version's two
+        einsums at the same shapes (MHA and GQA)."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from torch.utils.flop_counter import FlopCounterMode
+        for B, cap, H, K, hd in ((2, 40, 4, 4, 16), (3, 65, 8, 2, 32)):
+            args = _decode_case(71, B, cap, H, K, hd, dtype=dtype)
+            with FlopCounterMode(display=False) as fc:
+                decode_ops.ref.decode_attention(*args)
+            plain = fc.get_total_flops()
+            assert plain == decode_ops.flops(B, H, cap, hd) > 0
+            new = torch.zeros((B, 1, K, hd), dtype=dtype)
+            with FakeTensorMode() as mode, kernel_dryrun.dry_run():
+                fake = [mode.from_tensor(a) for a in args]
+                fnew = mode.from_tensor(new)
+                with FlopCounterMode(display=False) as fc:
+                    out = decode_ops.decode_attention(*fake, window=7,
+                                                      k_new=fnew, v_new=fnew)
+            assert out.shape == (B, 1, H, hd) and out.dtype == dtype
+            assert fc.get_total_flops() == plain
+        assert decode_ops.LAUNCHES["decode_attention"] == 0
+
+    def test_decode_rejects_bad_inputs(self):
+        q, k, v, kvpos, pos = _decode_case(72, 2, 24, 4, 2, 16)
+        with pytest.raises(TypeError):           # dtype mismatch
+            decode_ops.decode_attention(q, k.bfloat16(), v, kvpos, pos)
+        with pytest.raises(TypeError):           # float64
+            decode_ops.decode_attention(q.double(), k.double(), v.double(),
+                                        kvpos, pos)
+        with pytest.raises(TypeError):           # int64 positions
+            decode_ops.decode_attention(q, k, v, kvpos, pos.long())
+        with pytest.raises(ValueError):          # a non-contiguous cache
+            decode_ops.decode_attention(
+                q, k, v.transpose(1, 2).contiguous().transpose(1, 2), kvpos,
+                pos)
+        with pytest.raises(ValueError):          # hd not a multiple of 8
+            decode_ops.decode_attention(
+                *_decode_case(73, 2, 24, 4, 2, 12))
+        with pytest.raises(ValueError):          # rows past 512 bytes
+            decode_ops.decode_attention(
+                *_decode_case(74, 1, 8, 2, 2, 136))
+        with pytest.raises(ValueError):          # 4 query heads over 3
+            decode_ops.decode_attention(
+                q, *_decode_case(75, 2, 24, 4, 3, 16)[1:])
+        with pytest.raises(ValueError):          # two query tokens
+            decode_ops.decode_attention(torch.cat([q, q], 1), k, v, kvpos,
+                                        pos)
+        with pytest.raises(ValueError):
+            decode_ops.decode_attention(q, k, v, kvpos, pos, window=0)
+        new = torch.zeros((2, 1, 2, 16))
+        with pytest.raises(ValueError):          # k_new without v_new
+            decode_ops.decode_attention(q, k, v, kvpos, pos, k_new=new)
+        with pytest.raises(ValueError):          # a row per KV head
+            decode_ops.decode_attention(q, k, v, kvpos, pos,
+                                        k_new=new[:, :, :1],
+                                        v_new=new[:, :, :1])
+        with pytest.raises(TypeError):
+            decode_ops.decode_attention(q, k, v, kvpos, pos,
+                                        k_new=new.bfloat16(),
+                                        v_new=new.bfloat16())
+
+    @pytest.mark.parametrize("B,K,G,cap", [
+        (32, 16, 1, 1792), (32, 16, 1, 960), (8, 16, 1, 3853),
+        (8, 16, 1, 781), (1, 8, 8, 4096), (2, 8, 6, 1000), (1, 1, 1, 5),
+        (1, 8, 12, 32768)])
+    def test_decode_plan(self, B, K, G, cap):
+        """Whole tiles, every slot in one split, p of a split within the
+        kernel's shared memory, one wave of eight blocks an SM filled where
+        the cache is long enough, and scratch for the scores and the
+        splits' partial sums."""
+        split = decode_ops.plan(B, K, G, cap, 132)
+        gt = min(8, 1 << (G - 1).bit_length())
+        n = -(-cap // split)
+        assert split % 32 == 0 and (n - 1) * split < cap <= n * split
+        assert split <= min(1024, 2048 // gt)
+        wave = 8 * 132 // (B * K * -(-G // gt))
+        assert n >= min(wave, -(-cap // 256))
+        H, hd = K * G, 128
+        part = B * H * n * hd if n > 1 else 0
+        assert decode_ops.scratch_bytes(B, H, K, cap, hd) == 4 * (
+            -(-B * H * cap // 64) * 64 + part)
+
     def test_ssd_rejects_bad_inputs(self):
         X, A, Bm, Cm = (_t(a) for a in _ssd_inputs(14, 1, 32, 4, 8, 2, 8))
         with pytest.raises(TypeError):
@@ -435,6 +580,95 @@ class TestKernelsOnCard:
                 saved = torch.autograd.grad(y, leaves, dY)
                 for g, a in zip(got, saved):
                     assert torch.equal(g, a)
+
+
+@pytest.mark.cuda
+class TestDecodeKernelOnCard:
+    """The decode-attention kernel against the plain version on the same
+    CUDA tensors, and against a float32 computation of the same function
+    (the plain version on the inputs' float32 values: q scaled and p kept
+    in float32).  Tolerances: float32, the kernel and the plain version
+    differ only in the order of float32 sums, 2e-5; bf16, a different
+    order can move a pre-rounding p or output across a bf16 rounding
+    boundary, one or two bf16 ulps of the output (2^-8 relative each), so
+    1e-2; against the float32 function, bf16's roundings of q.scale, p and
+    the output, the flash tests' 2e-2."""
+
+    @staticmethod
+    def _need_card():
+        if not torch.cuda.is_available():
+            pytest.skip("the CUDA kernel has no CPU mode; needs a CUDA card")
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    def test_matches_plain(self, dtype):
+        from repro_torch.models.attention import append_kv
+        self._need_card()
+        tdtype = getattr(torch, dtype)
+        for seed, (B, cap, H, K, hd, kind, window) in enumerate(
+                decode_ops.ref.CHECKED):
+            if dtype == "float32" and hd * 4 > decode_ops.MAX_ROW_BYTES:
+                continue
+            args = _decode_case(seed, B, cap, H, K, hd, kind, tdtype, "cuda")
+            before = decode_ops.LAUNCHES["decode_attention"]
+            got = decode_ops.decode_attention(*args, window=window)
+            torch.cuda.synchronize()
+            assert decode_ops.LAUNCHES["decode_attention"] == before + 1
+            assert got.dtype == tdtype and got.shape == args[0].shape
+            want = decode_ops.ref.decode_attention(*args, window=window)
+            tol = F32 if dtype == "float32" else dict(atol=1e-2, rtol=1e-2)
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+            f32 = decode_ops.ref.decode_attention(
+                *(a.float() for a in args[:3]), *args[3:], window=window)
+            tol = F32 if dtype == "float32" else BF16
+            torch.testing.assert_close(got.float(), f32, **tol)
+            # with this token's rows: written bitwise, then attended to
+            q, k, v, kvpos, pos = args
+            new = torch.randn((2, B, 1, K, hd), device="cuda").to(tdtype)
+            k2, v2 = k.clone(), v.clone()
+            append_kv(k2, v2, new[0], new[1], pos)
+            want = decode_ops.ref.decode_attention(q, k2, v2, kvpos, pos,
+                                                   window=window)
+            got = decode_ops.decode_attention(q, k, v, kvpos, pos,
+                                              window=window, k_new=new[0],
+                                              v_new=new[1])
+            assert torch.equal(k, k2) and torch.equal(v, v2)
+            tol = F32 if dtype == "float32" else dict(atol=1e-2, rtol=1e-2)
+            torch.testing.assert_close(got.float(), want.float(), **tol)
+
+    def test_one_token_and_bitwise_repeat(self):
+        """B = 1, and two calls on the same inputs bitwise equal (no
+        atomics decide a sum) at a split cache."""
+        self._need_card()
+        for B, cap in ((1, 1792), (8, 3853)):
+            args = _decode_case(40 + B, B, cap, 16, 16, 128, "fill",
+                                dtype=torch.bfloat16, device="cuda")
+            a = decode_ops.decode_attention(*args)
+            b = decode_ops.decode_attention(*args)
+            assert torch.equal(a, b)
+            torch.testing.assert_close(
+                a.float(), decode_ops.ref.decode_attention(*args).float(),
+                atol=1e-2, rtol=1e-2)
+
+    def test_one_launch_per_layer_in_a_decode_step(self):
+        """A smoke olmoe decode step on the card: every layer's decode
+        attention goes through the kernel, one call each."""
+        self._need_card()
+        from repro_torch.configs import smoke_config
+        from repro_torch.models import decode_step, init_params, prefill
+        cfg = smoke_config("olmoe-1b-7b")
+        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            device="cuda")
+        toks = torch.randint(0, cfg.vocab, (2, 12), dtype=torch.int32,
+                             device="cuda")
+        _, cache = prefill(model, cfg, {"tokens": toks}, capacity=16)
+        before = decode_ops.LAUNCHES["decode_attention"]
+        for t in range(2):
+            decode_step(model, cfg, {"tokens": toks[:, t]}, cache,
+                        torch.full((2,), 12 + t, dtype=torch.int32,
+                                   device="cuda"))
+        torch.cuda.synchronize()
+        assert decode_ops.LAUNCHES["decode_attention"] - before \
+            == 2 * cfg.n_layers
 
 
 # ------------------------------------------- rehearsal of the bf16 kernels
