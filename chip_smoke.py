@@ -241,6 +241,24 @@ Phases (any failure exits non-zero; nothing is caught):
    ``launches`` is phase 15's olmoe count.  ``python3 -c "import chip_smoke;
    chip_smoke.decode_attention_bench()"`` runs it alone with its build.
 
+18. Zamba2-2.7B in Zyphra's form (``zamba2-2.7b-zyphra``: two shared
+   blocks over the 5120-wide concatenation with the embeddings, hd 160,
+   scale ``80 ** -0.5``; the ``zamba2-2.7b-serve-prefill`` cell's
+   configuration) at full width, weights from ``init_params`` with seed 0:
+   ``serve_demo``'s loop for 8 x 3840 and 8 x 768 prompts, 4 greedy tokens
+   each, after a warm-up: exactly 54 ``ssd`` and 9 ``flash_attention``
+   launches per prefill, 9 ``decode_attention`` launches per decode step,
+   every attention call at Zyphra's scale, logits finite.  Then the bf16
+   hd-160 ``flash_attention`` forward against its plain version (a batch
+   row at a time; phase 8's bf16 tolerance) at B 8 x {768, 1536, 3840}, H
+   32, and ``decode_attention`` against its plain version at B 8, cap 3853,
+   H = K = 32 (every slot valid, and rows part filled; phase 17's bf16
+   tolerance), both at that scale; each timed there beside the plain
+   version, its bound and ``scaled_dot_product_attention``: the
+   ``zyphra`` field of the ``flash_attention`` and ``decode_attention``
+   records.  ``python3 -c "import chip_smoke; chip_smoke.zyphra_bench()"``
+   runs it alone with its builds.
+
 The card's ``nvidia-smi`` line comes two lines before the end, then
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -3835,6 +3853,205 @@ def decode_attention_bench():
     print(json.dumps({"kernels": decode_attention_phase(err)}), flush=True)
 
 
+# ------------------------------------------------------------- phase 18
+ZYPHRA = "zamba2-2.7b-zyphra"
+# the zamba2-2.7b-serve-prefill cell's shapes (perfbench's azure-code mix:
+# 8 clients, prompts of 768 to 3840 tokens, 13 tokens served a prompt)
+ZYPHRA_B = 8
+ZYPHRA_PROMPTS = (768, 1536, 3840)
+ZYPHRA_CAP = 3840 + 13
+ZYPHRA_NEW_TOKENS = 4
+
+
+def zyphra_serving():
+    """18 (a): Zyphra's form served at full width, launches counted and
+    every attention call's softmax scale recorded."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.models import init_params
+    cfg = get_config(ZYPHRA)
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    serve(model, cfg, ((1, 256),), 2, seed=99)  # warm-up, not counted
+    for o in (sops, fops, dops):
+        o.reset_launches()
+    flash = ShapeRecorder(fops, "flash_attention", lambda q, k, v, **kw: (
+        tuple(q.shape), kw.get("scale")))
+    decode = ShapeRecorder(dops, "decode_attention", lambda q, k, *a, **kw: (
+        tuple(q.shape), tuple(k.shape), kw.get("scale")))
+    with flash, decode:
+        records = serve(model, cfg, ((ZYPHRA_B, ZYPHRA_PROMPTS[-1]),
+                                     (ZYPHRA_B, ZYPHRA_PROMPTS[0])),
+                        ZYPHRA_NEW_TOKENS, seed=0)
+    uses = len(cfg.hybrid_layer_ids)
+    for r in records:
+        if r["prefill_launches"] != {"ssd": cfg.n_layers,
+                                     "flash_attention": uses}:
+            raise AssertionError(f"{ZYPHRA}: prefill launched "
+                                 f"{r['prefill_launches']}, want "
+                                 f"{cfg.n_layers} ssd and {uses} "
+                                 f"flash_attention")
+        if any(r["decode_launches"].values()):
+            raise AssertionError(f"{ZYPHRA}: decode launched a prefill "
+                                 f"kernel")
+        check_decode_launches(r, uses, ZYPHRA)
+        if not r["finite"]:
+            raise AssertionError(f"{ZYPHRA}: non-finite logits")
+    scales = {key[-1] for key in flash.seen | decode.seen}
+    if scales != {cfg.attn_scale}:
+        raise AssertionError(f"{ZYPHRA}: attention scales {scales}, want "
+                             f"{cfg.attn_scale}")
+    del model
+    torch.cuda.empty_cache()
+    return cfg, {"records": records,
+                 "launches": {"ssd": sops.LAUNCHES["ssd"],
+                              "flash_attention":
+                                  fops.LAUNCHES["flash_attention"],
+                              "decode_attention":
+                                  dops.LAUNCHES["decode_attention"]},
+                 "flash_calls": sorted(map(str, flash.seen)),
+                 "decode_calls": sorted(map(str, decode.seen))}
+
+
+def zyphra_flash(cfg, err):
+    """18 (b): the bf16 hd-160 forward against its plain version (a batch
+    row at a time: the dense scores of 8 rows at 3840 would not fit) at
+    the cell's prefill shapes and Zyphra's scale, then timed beside the
+    plain version, its bound and ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fops
+    H, K, hd, scale = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.attn_scale
+    rng = np.random.default_rng(18)
+    out = []
+    for S in ZYPHRA_PROMPTS:
+        q, k, v, _, _ = flash_case(rng, ZYPHRA_B, S, S, H, K, hd,
+                                   torch.bfloat16)
+
+        def kernel():
+            return fops.flash_attention(q, k, v, causal=True, scale=scale)
+
+        def plain():
+            return [fops.ref.flash_attention(
+                q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=True,
+                scale=scale) for i in range(ZYPHRA_B)]
+
+        _close(kernel(), torch.cat(plain()), FLASH_TOL[torch.bfloat16],
+               f"flash_attention {ZYPHRA} {(ZYPHRA_B, S, H, K, hd)}", err,
+               "flash_attention")
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain, reps=3)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale))
+        nbytes = fops.io_bytes(ZYPHRA_B, S, S, H, K, hd, 2)
+        nops = fops.flops(ZYPHRA_B, S, S, H, hd, True, None)
+        bound_ms, bound_by = _bound(nbytes, nops)
+        out.append({"shape": [ZYPHRA_B, S, S, H, K, hd], "causal": True,
+                    "scale": scale, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bytes": nbytes, "ops": nops})
+        del q, k, v, qt, kt, vt
+    return out
+
+
+def zyphra_decode(cfg, err):
+    """18 (c): the decode kernel at hd 160 against its plain version at the
+    cell's longest cache and Zyphra's scale (every slot valid, and rows
+    part filled), then timed there beside the plain version, its bound
+    (``ops.io_bytes``) and SDPA with an explicit mask on transposed
+    copies."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import ops as dops
+    H, K, hd, scale = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.attn_scale
+    B, cap = ZYPHRA_B, ZYPHRA_CAP
+    for seed, kind in enumerate(("full", "fill")):
+        args = dops.ref.case(seed, B, cap, H, K, hd, kind, torch.bfloat16,
+                             "cuda")
+        _close(dops.decode_attention(*args, scale=scale).float(),
+               dops.ref.decode_attention(*args, scale=scale).float(),
+               (DECODE_TOL[torch.bfloat16],) * 2,
+               f"decode_attention {ZYPHRA} {(B, cap, H, K, hd, kind)}", err,
+               "decode_attention")
+    q, k, v, kvpos, pos = args = dops.ref.case(
+        2, B, cap, H, K, hd, "full", torch.bfloat16, "cuda")
+    ms = time_ms(lambda: dops.decode_attention(*args, scale=scale))
+    plain_ms = time_ms(lambda: dops.ref.decode_attention(*args, scale=scale),
+                       reps=5)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = ((kvpos >= 0) & (kvpos <= pos[:, None]))[:, None, None, :]
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, scale=scale))
+    nbytes = dops.io_bytes(B, cap, H, K, hd, 2)
+    nops = dops.flops(B, H, cap, hd)
+    bound_ms, bound_by = _bound(nbytes, nops)
+    return {"shape": [B, cap, H, K, hd], "scale": scale, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": nops}
+
+
+def zyphra_phase(kernels, err):
+    """Phase 18 (see the module docstring): adds a ``zyphra`` field to the
+    ``flash_attention`` and ``decode_attention`` records of ``kernels``."""
+    t0 = time.perf_counter()
+    cfg, a = zyphra_serving()
+    for r in a["records"]:
+        log(f"phase 18: {ZYPHRA} {r['requests']} x {r['prompt']} tokens: "
+            f"prefill {r['prefill_s']:.4f} s, decode {r['new_tokens']} "
+            f"tokens in {r['decode_s']:.4f} s, peak {r['peak_gb']:.2f} GB; "
+            f"launches per prefill {r['prefill_launches']}, decode_attention"
+            f" in decode {r['decode_attention_launches']}; logits finite")
+    log(f"phase 18: {ZYPHRA} main-path launches {a['launches']}; every "
+        f"attention call at scale {cfg.attn_scale}: flash_attention "
+        f"{a['flash_calls']}, decode_attention {a['decode_calls']}")
+    flash = zyphra_flash(cfg, err)
+    for e in flash:
+        log(f"phase 18: flash_attention {e['shape']} scale {e['scale']:.6g}:"
+            f" {e['ms']:.4f} ms (plain {e['plain_ms']:.4f}, library "
+            f"{e['library_ms']:.4f}, bound {e['bound_ms']:.4f} by "
+            f"{e['bound_by']}, {e['bound_ms'] / e['ms']:.1%} of it); == "
+            f"plain")
+    dec = zyphra_decode(cfg, err)
+    log(f"phase 18: decode_attention {dec['shape']} scale "
+        f"{dec['scale']:.6g}: {dec['ms']:.4f} ms (plain "
+        f"{dec['plain_ms']:.4f}, library {dec['library_ms']:.4f}, bound "
+        f"{dec['bound_ms']:.4f} by {dec['bound_by']}, "
+        f"{dec['bound_ms'] / dec['ms']:.1%} of it); == plain, full and "
+        f"part-filled rows")
+    r = a["records"][0]
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            k["zyphra"] = {"launches_per_prefill":
+                           r["prefill_launches"]["flash_attention"],
+                           "cases": flash}
+        elif k["name"] == "decode_attention":
+            k["zyphra"] = {"launches_per_step":
+                           r["decode_attention_launches"] // r["new_tokens"],
+                           **dec}
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s; records "
+        + json.dumps(a["records"]))
+
+
+def zyphra_bench():
+    """Phase 18 alone on the card, with its builds."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.ssd import ops as sops
+    log(device_line())
+    build.build_all([sops.SOURCE, fops.SOURCE, dops.SOURCE])
+    kernels = [{"name": "flash_attention"}, {"name": "decode_attention"}]
+    err = dict.fromkeys(REPLACES, 0.0)
+    zyphra_phase(kernels, err)
+    print(json.dumps({"kernels": kernels}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4120,6 +4337,9 @@ def main() -> int:
     # 17. decode attention: parity, then timed at the olmoe cells' shapes
     kernels += decode_attention_phase(
         err, fam["olmoe"]["launches"]["decode_attention"])
+
+    # 18. Zamba2-2.7B in Zyphra's form: launches, hd-160 kernels
+    zyphra_phase(kernels, err)
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

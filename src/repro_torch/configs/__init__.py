@@ -1,4 +1,6 @@
-"""Architecture registry: the 10 assigned configs + reduced smoke variants."""
+"""Architecture registry: the 10 assigned configs + reduced smoke variants,
+and the forms the reference does not have (:data:`FORMS`), which
+:func:`get_config` also gives."""
 
 from __future__ import annotations
 
@@ -21,16 +23,20 @@ _MODULES = {
     "mamba2-780m": "mamba2_780m",
 }
 
-__all__ = ["ARCHS", "get_config", "smoke_config", "list_archs"]
+# Zamba2-2.7B as Zyphra runs it (models.config.Zamba2Config)
+_FORM_MODULES = {"zamba2-2.7b-zyphra": "zamba2_2_7b_zyphra"}
+
+__all__ = ["ARCHS", "FORMS", "get_config", "smoke_config", "list_archs"]
 
 ARCHS: List[str] = list(_MODULES)
+FORMS: List[str] = list(_FORM_MODULES)
 
 
 def get_config(arch: str) -> ModelConfig:
-    if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; choose from {ARCHS}")
-    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
-    return mod.CONFIG
+    module = _MODULES.get(arch) or _FORM_MODULES.get(arch)
+    if module is None:
+        raise KeyError(f"unknown arch {arch!r}; choose from {ARCHS + FORMS}")
+    return importlib.import_module(f"repro_torch.configs.{module}").CONFIG
 
 
 def smoke_config(arch: str) -> ModelConfig:

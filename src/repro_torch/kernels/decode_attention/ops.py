@@ -183,7 +183,8 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, kv_positions: torch.Tensor,
                      pos: torch.Tensor, *, window: Optional[int] = None,
                      k_new: Optional[torch.Tensor] = None,
-                     v_new: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     v_new: Optional[torch.Tensor] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """One query token against a KV cache.
 
     q (B,1,H,hd); cache_k/v (B,cap,K,hd), query head h reads KV head h // G;
@@ -193,7 +194,9 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     (B,1,K,hd), if given, are written into slot ``pos % cap`` of the caches
     first (in place).  q, the caches and the new rows of one dtype (float32
     or bfloat16), all contiguous, on one device; hd a multiple of 8, at most
-    256 in bfloat16 and 128 in float32.  Returns (B,1,H,hd) in q's dtype.
+    256 in bfloat16 and 128 in float32.  ``scale``, the softmax scale
+    (default ``1/sqrt(hd)``), multiplies q in its dtype, rounded to it.
+    Returns (B,1,H,hd) in q's dtype.
     """
     _check(q, cache_k, cache_v, kv_positions, pos, window, k_new, v_new)
     if q.device.type == "cpu" and not dryrun.active():
@@ -201,11 +204,11 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
             ref.write(cache_k.shape[1], 0, (cache_k, cache_v),
                       (k_new[:, 0], v_new[:, 0]), pos)
         return ref.decode_attention(q, cache_k, cache_v, kv_positions, pos,
-                                    window=window)
+                                    window=window, scale=scale)
     if _obs.enabled:
         _obs.count(COUNT, 1)
     return torch.ops.repro_torch.decode_attention(
-        q, cache_k, cache_v, kv_positions, pos, window, k_new, v_new)
+        q, cache_k, cache_v, kv_positions, pos, window, k_new, v_new, scale)
 
 
 def _sm_count(device) -> int:
@@ -223,12 +226,14 @@ def _sm_count(device) -> int:
                          device_types="cuda")
 def _decode_op(q: Tensor, cache_k: Tensor, cache_v: Tensor,
                kv_positions: Tensor, pos: Tensor, window: Optional[int],
-               k_new: Optional[Tensor], v_new: Optional[Tensor]) -> Tensor:
+               k_new: Optional[Tensor], v_new: Optional[Tensor],
+               scale: Optional[float] = None) -> Tensor:
     """One entry point: the scores kernel (after writing the new rows, when
     given), the p.v kernel, and the combine when the slots are split.  The
     caches change only where the new rows go."""
     B, _, H, hd = q.shape
     cap, K = cache_k.shape[1], cache_k.shape[2]
+    scale = ref.default_scale(hd) if scale is None else scale
     sms = _sm_count(q.device)
     split = plan(B, K, H // K, cap, sms)
     out = torch.empty_like(q)
@@ -241,14 +246,14 @@ def _decode_op(q: Tensor, cache_k: Tensor, cache_v: Tensor,
                  None if v_new is None else v_new.data_ptr(),
                  kv_positions.data_ptr(), pos.data_ptr(), out.data_ptr(),
                  scratch.data_ptr(), B, cap, H, K, hd, window or 0, split,
-                 1.0 / hd ** 0.5)
+                 scale)
     LAUNCHES["decode_attention"] += 1
     return out
 
 
 @_decode_op.register_fake
 def _decode_fake(q, cache_k, cache_v, kv_positions, pos, window, k_new,
-                 v_new):
+                 v_new, scale=None):
     return torch.empty_like(q)
 
 

@@ -23,20 +23,27 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["NEG_INF", "CHECKED", "decode_attention", "scores", "write",
-           "case"]
+__all__ = ["NEG_INF", "CHECKED", "default_scale", "decode_attention",
+           "scores", "write", "case"]
 
 NEG_INF = -1e30
+
+
+def default_scale(hd: int) -> float:
+    """The softmax scale when none is given, ``1/sqrt(hd)``."""
+    return 1.0 / (hd ** 0.5)
 
 
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, kv_positions: torch.Tensor,
                      pos: torch.Tensor, *,
-                     window: Optional[int] = None) -> torch.Tensor:
+                     window: Optional[int] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
     """q (B,1,H,hd); cache_k/v (B,cap,K,hd); kv_positions (B,cap), -1 for
-    an empty slot; pos (B,) the current position.  Returns (B,1,H,hd)."""
+    an empty slot; pos (B,) the current position; ``scale`` the softmax
+    scale (default ``1/sqrt(hd)``).  Returns (B,1,H,hd)."""
     B, _, H, hd = q.shape
-    s = scores(q, cache_k, kv_positions, pos, window)
+    s = scores(q, cache_k, kv_positions, pos, window, scale)
     m = torch.amax(s, dim=-1, keepdim=True)
     p = torch.exp(s - m)
     p = p / torch.sum(p, dim=-1, keepdim=True)
@@ -44,13 +51,14 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     return out.reshape(B, 1, H, hd)
 
 
-def scores(q, cache_k, kv_positions, pos, window):
+def scores(q, cache_k, kv_positions, pos, window, scale=None):
     """Masked float32 scores (B, K, G, cap) of one query token."""
     B, _, H, hd = q.shape
     K = cache_k.shape[2]
     # scaled in q's dtype, the scale rounded to it first, as the reference
-    scale = torch.full((), 1.0 / (hd ** 0.5), dtype=q.dtype, device=q.device)
-    qg = (q * scale).reshape(B, K, H // K, hd)
+    sc = torch.full((), default_scale(hd) if scale is None else scale,
+                    dtype=q.dtype, device=q.device)
+    qg = (q * sc).reshape(B, K, H // K, hd)
     s = torch.einsum("bkgh,bskh->bkgs", qg.float(), cache_k.float())
     mask = (kv_positions >= 0) & (kv_positions <= pos[:, None])
     if window is not None:

@@ -24,7 +24,9 @@
 // at zamba2's hd = 80).  BK is 128 up to hd 80 and 64 above: the largest
 // tile whose scores, P and output fit a thread's 168 registers without
 // spilling (a 288-thread wgmma kernel gets no more; 96-key tiles at hd 80
-// ran slower than 128 on the card).  The softmax runs in registers on the
+// ran slower than 128 on the card).  At Zamba2-2.7B's hd = 160 the output
+// holds 80 floats a thread, the scores of a 64-key tile 32 and its bf16 P
+// 16 words: 128 of the 168.  The softmax runs in registers on the
 // accumulator layout, in the log2 domain; a row's max and sum are taken
 // over the quad of threads that holds it.  Only tiles that straddle the
 // causal diagonal, the window's edge or the end of the keys are masked;
@@ -41,7 +43,8 @@
 // Pallas kernel scales q in float32).
 //
 // hd = 80: a row is 160 bytes, more than the 128 bytes a 128-byte-swizzled
-// TMA box may span.  Each tile is loaded as 64-column boxes (the shared
+// TMA box may span (hd = 160: 320 bytes, three boxes, the third filled
+// past column 160 with zeros; 96 KB of K / V ring and 48 KB of Q a block).  Each tile is loaded as 64-column boxes (the shared
 // layout of hopper.cuh), the second of which TMA fills past column 80 with
 // zeros: the q.k k-steps stop at hd, and the p.v accumulator is hd wide,
 // reading the second box through the descriptor's leading offset.  Chosen
@@ -269,7 +272,8 @@ constexpr float kLn2 = 0.6931471805599453f;
 // Keys per K / V tile for a head dim rounded to HD: the largest tile whose
 // scores (BK / 2 floats a thread), bf16 P (BK / 4 words) and output
 // (HD / 2 floats) fit the 168 registers a thread of this 288-thread wgmma
-// kernel gets without spilling: 128 up to hd 80, then 64.
+// kernel gets without spilling: 128 up to hd 80, then 64 (hd 160 included:
+// its products are wgmma m64n64 for q.k and m64n160 for p.v).
 __host__ __device__ constexpr int keys_per_tile(int HD) {
   return HD <= 80 ? 128 : 64;
 }
@@ -604,7 +608,7 @@ int launch(const void* q, const void* k, const void* v, void* out,
                         window, scale, stream);
   switch (round_up(hd, 16)) {
     KSP_HD(16) KSP_HD(32) KSP_HD(48) KSP_HD(64)
-    KSP_HD(80) KSP_HD(96) KSP_HD(112) KSP_HD(128)
+    KSP_HD(80) KSP_HD(96) KSP_HD(112) KSP_HD(128) KSP_HD(160)
   }
 #undef KSP_HD
   return (int)cudaErrorInvalidValue;
@@ -1554,8 +1558,9 @@ extern "C" {
 
 // Returns cudaGetLastError() after the launch: nonzero means the launch was
 // refused (or a tensor map could not be encoded).  The wrapper (ops.py)
-// checks shapes, dtypes, hd <= 128, and for bf16 hd % 8 == 0 and 16-byte
-// aligned pointers (TMA's rules).  lse (B, H, Sq) float32 may be null.
+// checks shapes, dtypes, hd <= 128 (the bf16 forward also 152 and 160), and
+// for bf16 hd % 8 == 0 and 16-byte aligned pointers (TMA's rules).  lse
+// (B, H, Sq) float32 may be null.
 int ksp_flash_attention_f32(const void* q, const void* k, const void* v,
                             void* out, void* lse, int B, int Sq, int Skv,
                             int H, int K, int hd, int causal, int window,

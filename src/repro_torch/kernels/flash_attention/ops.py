@@ -31,9 +31,12 @@ The CUDA source has two instances, picked here by dtype:
 * float32 (parity checks): the CUDA-core body; q scaled, softmax and both
   products in float32, as the Pallas kernel.
 
-Both take the head dim as it is (hd <= 128, zamba2's 80 included), where
+Both take the head dim as it is (hd <= 128, zamba2's 80 included; the
+bf16 forward also hd 152 and 160, Zamba2-2.7B's shared attention), where
 the TPU wrapper pads it to 128, and mask ragged sequence tails themselves,
-so nothing is padded or copied.  One launch per call.
+so nothing is padded or copied.  One launch per call.  The softmax scale
+defaults to ``1/sqrt(hd)``; a caller may give another (Zamba2's shared
+attention: ``(hd / 2) ** -0.5``).
 
 Training: when autograd records (grad enabled and an input that requires
 grad), :func:`flash_attention` goes through a ``torch.autograd.Function``
@@ -70,6 +73,8 @@ __all__ = ["LAUNCHES", "SOURCE", "reset_launches", "flash_attention",
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MAX_HD = 128  # kMaxHd in csrc/flash_attention.cu
+# the bf16 forward's instances (fa3::launch): hd rounded up to 16
+BF16_FWD_HDS = (16, 32, 48, 64, 80, 96, 112, 128, 160)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (q, k, v, out, lse or null, B, Sq, Skv, H, K, hd, causal, window or 0,
 #  scale, stream)
@@ -91,7 +96,7 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check(q, k, v, window):
+def _check(q, k, v, window, backward=False):
     """Validate the kernel contract; return ``(B, Sq, Skv, H, K, hd)``."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
@@ -116,8 +121,11 @@ def _check(q, k, v, window):
         raise ValueError(f"need positive sizes and K | H, got H={H} K={K}")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
-    if q.device.type == "cuda" and hd > MAX_HD:
-        raise ValueError(f"the kernel takes hd <= {MAX_HD}, got {hd}")
+    if q.device.type == "cuda" and hd > MAX_HD and (
+            backward or q.dtype != torch.bfloat16
+            or -(-hd // 16) * 16 not in BF16_FWD_HDS):
+        raise ValueError(f"the kernel takes hd <= {MAX_HD} (the bf16 "
+                         f"forward also 152 and 160), got {hd}")
     if q.device.type == "cuda" and q.dtype == torch.bfloat16:
         build.check_tma(hd, q=q, k=k, v=v)
     if q.device.type not in ("cpu", "cuda"):
@@ -158,58 +166,60 @@ def io_bytes(B: int, Sq: int, Skv: int, H: int, K: int, hd: int,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """GQA attention forward in the model layout.
 
     q: (B,Sq,H,hd); k/v: (B,Skv,K,hd), query head h reads KV head h // G;
-    causal mask aligned top-left (k <= q); optional window (k > q - window).
+    causal mask aligned top-left (k <= q); optional window (k > q - window);
+    scores scaled by ``scale`` (default ``1/sqrt(hd)``).
     All of one dtype (float32 or bfloat16), contiguous, on one device (or
     DTensors on one mesh).  Returns (B,Sq,H,hd) in q's dtype.
     """
     if isinstance(q, DTensor):
-        return _sharded(q, k, v, causal, window)
+        return _sharded(q, k, v, causal, window, scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        return _FlashAttention.apply(q, k, v, causal, window)
-    return _forward(q, k, v, causal, window, with_lse=False)[0]
+        return _FlashAttention.apply(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal, window, with_lse=False, scale=scale)[0]
 
 
-def _forward(q, k, v, causal, window, with_lse):
+def _forward(q, k, v, causal, window, with_lse, scale=None):
     """``(out, lse or None)``: the kernel's operator on CUDA (or in a dry
     run), the plain version on the CPU (which always computes ``lse``)."""
     _check(q, k, v, window)
     if q.device.type == "cpu" and not dryrun.active():
         if with_lse:
             return ref.flash_attention_fwd(q, k, v, causal=causal,
-                                           window=window)
-        return ref.flash_attention(q, k, v, causal=causal,
-                                   window=window), None
+                                           window=window, scale=scale)
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale), None
     out, lse = torch.ops.repro_torch.flash_attention(q, k, v, causal,
-                                                     window, with_lse)
+                                                     window, with_lse, scale)
     return out, (lse if with_lse else None)
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
                          device_types="cuda")
 def _flash_op(q: Tensor, k: Tensor, v: Tensor, causal: bool,
-              window: Optional[int], with_lse: bool) -> Tuple[Tensor, Tensor]:
+              window: Optional[int], with_lse: bool,
+              scale: Optional[float] = None) -> Tuple[Tensor, Tensor]:
     """One launch: ``(out, lse)``, ``lse`` (B, H, Sq) float32 when
     ``with_lse``, else (B, H, 0) and left null for the kernel."""
     B, Sq, H, hd = q.shape
+    scale = ref.default_scale(hd) if scale is None else scale
     Skv, K = k.shape[1], k.shape[2]
-    out, lse = _flash_fake(q, k, v, causal, window, with_lse)
+    out, lse = _flash_fake(q, k, v, causal, window, with_lse, scale)
     lib = build.load(SOURCE, SIGNATURES)
     build.launch(lib, f"ksp_flash_attention_{_SUFFIX[q.dtype]}", q.device,
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr() if with_lse else None,
-                 B, Sq, Skv, H, K, hd, int(causal), window or 0,
-                 1.0 / hd ** 0.5)
+                 B, Sq, Skv, H, K, hd, int(causal), window or 0, scale)
     LAUNCHES["flash_attention"] += 1
     return out, lse
 
 
 @_flash_op.register_fake
-def _flash_fake(q, k, v, causal, window, with_lse):
+def _flash_fake(q, k, v, causal, window, with_lse, scale=None):
     B, Sq, H, _ = q.shape
     lse = torch.empty((B, H, Sq if with_lse else 0), dtype=torch.float32,
                       device=q.device)
@@ -226,13 +236,14 @@ def _flash_flops(q_shape, k_shape, v_shape, causal, window, with_lse, *args,
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                         *, causal: bool = True,
-                        window: Optional[int] = None):
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None):
     """The gradients ``(dq, dk, dv)`` of :func:`flash_attention` from the
     saved ``q, k, v``, its output ``o``, the output's gradient ``do`` (same
     shape, dtype and device as q, contiguous) and the forward's ``lse``
     (B, H, Sq) float32: the backward kernel on CUDA, the plain version on
     the CPU."""
-    B, Sq, Skv, H, K, hd = _check(q, k, v, window)
+    B, Sq, Skv, H, K, hd = _check(q, k, v, window, backward=True)
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype \
                 or t.device != q.device or not t.is_contiguous():
@@ -244,11 +255,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{lse.dtype}")
     if q.device.type == "cpu" and not dryrun.active():
         return ref.flash_attention_bwd(q, k, v, o, do, lse, causal=causal,
-                                       window=window)
+                                       window=window, scale=scale)
     if q.device.type == "cuda" and q.dtype == torch.bfloat16:
         build.check_tma(hd, do=do)
     return torch.ops.repro_torch.flash_attention_bwd(q, k, v, o, do, lse,
-                                                     causal, window)
+                                                     causal, window, scale)
 
 
 def bwd_scratch_bytes(B: int, Sq: int, H: int) -> int:
@@ -261,12 +272,14 @@ def bwd_scratch_bytes(B: int, Sq: int, H: int) -> int:
 @torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
                          device_types="cuda")
 def _flash_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor,
-                  lse: Tensor, causal: bool, window: Optional[int]
+                  lse: Tensor, causal: bool, window: Optional[int],
+                  scale: Optional[float] = None
                   ) -> Tuple[Tensor, Tensor, Tensor]:
     """One launch: ``(dq, dk, dv)``."""
     B, Sq, H, hd = q.shape
+    scale = ref.default_scale(hd) if scale is None else scale
     Skv, K = k.shape[1], k.shape[2]
-    dq, dk, dv = _flash_bwd_fake(q, k, v, o, do, lse, causal, window)
+    dq, dk, dv = _flash_bwd_fake(q, k, v, o, do, lse, causal, window, scale)
     D = torch.empty(bwd_scratch_bytes(B, Sq, H) // 4, dtype=torch.float32,
                     device=q.device)
     lib = build.load(SOURCE, SIGNATURES)
@@ -274,26 +287,24 @@ def _flash_bwd_op(q: Tensor, k: Tensor, v: Tensor, o: Tensor, do: Tensor,
                  q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  o.data_ptr(), do.data_ptr(), lse.data_ptr(), D.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 B, Sq, Skv, H, K, hd, int(causal), window or 0,
-                 1.0 / hd ** 0.5)
+                 B, Sq, Skv, H, K, hd, int(causal), window or 0, scale)
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv
 
 
 @_flash_bwd_op.register_fake
-def _flash_bwd_fake(q, k, v, o, do, lse, causal, window):
+def _flash_bwd_fake(q, k, v, o, do, lse, causal, window, scale=None):
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
-def _flash_bwd_flops(q_shape, k_shape, *args, out_shape=None,
-                     **kwargs) -> int:
+def _flash_bwd_flops(q_shape, k_shape, v_shape, o_shape, do_shape, lse_shape,
+                     causal, window, *args, out_shape=None, **kwargs) -> int:
     B, Sq, H, hd = q_shape
-    causal, window = args[-2], args[-1]
     return flops(B, Sq, k_shape[1], H, hd, causal, window, backward=True)
 
 
-def _sharded(q, k, v, causal, window):
+def _sharded(q, k, v, causal, window, scale):
     """:func:`flash_attention` of DTensors: each device runs the kernel on
     its shard through ``local_map``.  The batch shards with q; heads shard
     on the mesh axes where q's do.  Where k/v's heads are whole on such an
@@ -327,7 +338,8 @@ def _sharded(q, k, v, causal, window):
             n = max(ql.shape[2] // G, 1)
             kl = kl[:, :, h0 // G:h0 // G + n].contiguous()
             vl = vl[:, :, h0 // G:h0 // G + n].contiguous()
-        return flash_attention(ql, kl, vl, causal=causal, window=window)
+        return flash_attention(ql, kl, vl, causal=causal, window=window,
+                               scale=scale)
 
     # where a shard reads a slice of whole k/v, their gradients are
     # partial sums over that axis
@@ -343,10 +355,11 @@ class _FlashAttention(torch.autograd.Function):
     ``lse``, the backward is :func:`flash_attention_bwd`."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out, lse = _forward(q, k, v, causal, window, with_lse=True)
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = _forward(q, k, v, causal, window, with_lse=True,
+                            scale=scale)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return out
 
     @staticmethod
@@ -354,5 +367,5 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
                                          lse, causal=ctx.causal,
-                                         window=ctx.window)
-        return dq, dk, dv, None, None
+                                         window=ctx.window, scale=ctx.scale)
+        return dq, dk, dv, None, None, None

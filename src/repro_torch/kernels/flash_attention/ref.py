@@ -4,8 +4,9 @@ The counterpart of the reference's ``flash_attention/ref.py::mha_reference``
 in the model layout, in float32: GQA (query head h reads KV head h // G),
 causal mask aligned top-left (key k visible to query q when k <= q), an
 optional sliding window (k > q - window).  Two choices follow the kernel
-rather than ``mha_reference``: q is scaled by ``1/sqrt(hd)`` in float32
-before the product (``kernel.py:55``), and masked scores take the finite
+rather than ``mha_reference``: q is scaled (by ``1/sqrt(hd)`` unless a
+``scale`` is given) in float32 before the product (``kernel.py:55``), and
+masked scores take the finite
 ``-1e30`` (``kernel.py:30``), so a row with no visible key averages V
 instead of turning NaN.  Used for CPU tensors and as the kernels' oracle on
 the card.
@@ -27,19 +28,26 @@ from typing import Optional
 
 import torch
 
-__all__ = ["NEG_INF", "flash_attention", "flash_attention_fwd",
-           "flash_attention_bwd"]
+__all__ = ["NEG_INF", "default_scale", "flash_attention",
+           "flash_attention_fwd", "flash_attention_bwd"]
 
 NEG_INF = -1e30
 
 
-def _dense(q, k, v, causal, window):
+def default_scale(hd: int) -> float:
+    """The softmax scale when none is given, ``1/sqrt(hd)``."""
+    return 1.0 / hd ** 0.5
+
+
+def _dense(q, k, v, causal, window, scale):
     """Scaled q, k and v per query head in float32 (B, H, S, hd), the
     masked scores (B, H, Sq, Skv) and the mask (Sq, Skv)."""
     Sq, H, hd = q.shape[1], q.shape[2], q.shape[3]
     Skv, K = k.shape[1], k.shape[2]
     G = H // K
-    qf = q.float().transpose(1, 2) * (1.0 / hd ** 0.5)        # (B,H,Sq,hd)
+    if scale is None:
+        scale = default_scale(hd)
+    qf = q.float().transpose(1, 2) * scale                    # (B,H,Sq,hd)
     kf = k.float().transpose(1, 2).repeat_interleave(G, dim=1)
     vf = v.float().transpose(1, 2).repeat_interleave(G, dim=1)
     s = qf @ kf.transpose(-1, -2)                             # (B,H,Sq,Skv)
@@ -55,32 +63,37 @@ def _dense(q, k, v, causal, window):
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
-                        window: Optional[int] = None):
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None):
     """q (B,Sq,H,hd); k/v (B,Skv,K,hd).  Returns ``(out (B,Sq,H,hd) in q's
     dtype, lse (B,H,Sq) float32)``."""
-    _, _, vf, s, _ = _dense(q, k, v, causal, window)
+    _, _, vf, s, _ = _dense(q, k, v, causal, window, scale)
     p = torch.softmax(s, dim=-1)
     out = (p @ vf).transpose(1, 2).to(q.dtype).contiguous()
     return out, torch.logsumexp(s, dim=-1)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """q (B,Sq,H,hd); k/v (B,Skv,K,hd).  Returns (B,Sq,H,hd) in q's dtype."""
-    return flash_attention_fwd(q, k, v, causal=causal, window=window)[0]
+    return flash_attention_fwd(q, k, v, causal=causal, window=window,
+                               scale=scale)[0]
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                         *, causal: bool = True,
-                        window: Optional[int] = None):
+                        window: Optional[int] = None,
+                        scale: Optional[float] = None):
     """The gradients of :func:`flash_attention` from the saved ``q, k, v``,
     the output ``o``, its gradient ``do`` and the forward's ``lse``.
     Returns ``(dq, dk, dv)`` in the inputs' dtypes."""
     B, Sq, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
-    qf, kf, vf, s, mask = _dense(q, k, v, causal, window)
+    if scale is None:
+        scale = default_scale(hd)
+    qf, kf, vf, s, mask = _dense(q, k, v, causal, window, scale)
     seen = mask.any(dim=-1, keepdim=True)                     # (Sq, 1)
     p = torch.where(seen, torch.exp(s - lse[..., None]), 1.0 / Skv)
     dof = do.float().transpose(1, 2)                          # (B,H,Sq,hd)
@@ -88,7 +101,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dp = dof @ vf.transpose(-1, -2)
     D = (dof * o.float().transpose(1, 2)).sum(-1, keepdim=True)
     ds = torch.where(mask, p * (dp - D), 0.0)
-    dq = (ds @ kf) * (1.0 / hd ** 0.5)
+    dq = (ds @ kf) * scale
     dk = ds.transpose(-1, -2) @ qf
     fold = lambda t: t.reshape(B, K, H // K, Skv, hd).sum(2)  # noqa: E731
     return (dq.transpose(1, 2).to(q.dtype),

@@ -38,6 +38,7 @@ from repro_torch.launch.dryrun import run_cell
 from repro_torch.launch.mesh import HW
 from repro_torch.launch.shapes import (SHAPES, ShapeCell, cell_supported,
                                        cfg_for_cell, step_kind)
+from repro_torch.models.config import Zamba2Config
 
 __all__ = ["roofline_cell", "roofline_terms", "model_flops", "derive_terms",
            "mfu"]
@@ -59,8 +60,10 @@ def model_flops(cfg, shape) -> float:
     def attn_flops(n_ctx_pairs):
         if cfg.family == "ssm" or not cfg.n_heads:
             return 0.0
-        n_attn_layers = (cfg.n_layers // cfg.shared_attn_every
-                         if cfg.family == "hybrid" else cfg.n_layers)
+        n_attn_layers = (
+            len(cfg.hybrid_layer_ids) if isinstance(cfg, Zamba2Config) else
+            cfg.n_layers // cfg.shared_attn_every if cfg.family == "hybrid"
+            else cfg.n_layers)
         return 4.0 * cfg.n_heads * cfg.hd * n_ctx_pairs * n_attn_layers
 
     if kind == "train":

@@ -39,26 +39,28 @@ def decode_gqa_attention(q: torch.Tensor, cache_k: torch.Tensor,
                          cache_v: torch.Tensor, kv_positions: torch.Tensor,
                          pos: torch.Tensor, *, window: Optional[int] = None,
                          k_new: Optional[torch.Tensor] = None,
-                         v_new: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         v_new: Optional[torch.Tensor] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
     """One query token against a (possibly ring) KV cache.
 
     q (B,1,H,hd); cache_k/v (B,cap,K,hd); kv_positions (B,cap), -1 for an
     empty slot; pos (B,) the current position.  Returns (B,1,H,hd).  With
     ``k_new`` / ``v_new`` (B,1,K,hd), this token's K/V are first written
     at ``pos % capacity`` (:func:`append_kv`; on plain tensors inside the
-    decode-attention call).
+    decode-attention call).  ``scale``: the softmax scale (default
+    ``1/sqrt(hd)``).
     """
     if isinstance(cache_k, DTensor):
         if k_new is not None:
             append_kv(cache_k, cache_v, k_new, v_new, pos)
         return _sharded_decode(q, cache_k, cache_v, kv_positions, pos,
-                               window)
+                               window, scale)
     return decode_ops.decode_attention(q, cache_k, cache_v, kv_positions, pos,
                                        window=window, k_new=k_new,
-                                       v_new=v_new)
+                                       v_new=v_new, scale=scale)
 
 
-def _sharded_decode(q, cache_k, cache_v, kv_positions, pos, window):
+def _sharded_decode(q, cache_k, cache_v, kv_positions, pos, window, scale):
     """:func:`decode_gqa_attention` of DTensors, each device on its batch
     rows and KV heads (q follows the cache's head split).  Over a
     sequence-sharded cache each device attends to its slots and the
@@ -76,7 +78,7 @@ def _sharded_decode(q, cache_k, cache_v, kv_positions, pos, window):
     in_pl = (q_pl, cpl, cpl, kvpos_pl, row_pl)
     if not seq_dims:
         return local_map(
-            lambda *a: decode_gqa_attention(*a, window=window),
+            lambda *a: decode_gqa_attention(*a, window=window, scale=scale),
             out_placements=list(q_pl), in_placements=in_pl, device_mesh=mesh,
             redistribute_inputs=True)(*args)
     # (B, K, G, ...) layouts: heads at dim 1
@@ -89,7 +91,7 @@ def _sharded_decode(q, cache_k, cache_v, kv_positions, pos, window):
                    for i, p in enumerate(red_pl))
 
     def scores(ql, kl, kvl, pl):
-        s = _scores(ql, kl, kvl, pl, window)
+        s = _scores(ql, kl, kvl, pl, window, scale)
         return s, torch.amax(s, dim=-1, keepdim=True)
 
     s, m = local_map(scores, out_placements=(s_pl, m_pl),

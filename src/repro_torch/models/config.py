@@ -2,8 +2,11 @@
 
 One :class:`ModelConfig` drives the whole zoo: dense GQA transformers
 (optionally qk-norm / M-RoPE / encoder-only), MoE transformers, Mamba2 (SSD)
-stacks, and Zamba2-style hybrids (scanned Mamba2 blocks + one weight-shared
-attention block applied periodically).
+stacks, and Zamba2-style hybrids: scanned Mamba2 blocks + one weight-shared
+attention block applied periodically (the reference's form), or Zamba2's
+own (:class:`Zamba2Config`: alternating shared blocks over the stream
+concatenated with the embeddings, a LoRA adapter and a linear map per
+use, feeding the next Mamba2 layer's input).
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
-__all__ = ["ModelConfig", "SMOKE_OVERRIDES"]
+__all__ = ["ModelConfig", "Zamba2Config", "SMOKE_OVERRIDES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,15 +89,19 @@ class ModelConfig:
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_headdim
 
+    def _mamba_params(self) -> int:
+        """One Mamba2 layer: in_proj, out_proj, conv, dt/A/D, norms."""
+        D, din, N, G, H = (self.d_model, self.d_inner, self.ssm_state,
+                           self.ssm_groups, self.ssm_heads)
+        per = D * (2 * din + 2 * G * N + H) + din * D  # in_proj + out_proj
+        return per + (din + 2 * G * N) * 4 + 2 * H + 2 * D + din
+
     def params_count(self) -> int:
         """Approximate parameter count (used for 6·N·D roofline accounting)."""
         D, F, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
         emb = V * D * 2  # embed + untied head
         if self.family == "ssm":
-            din, N, G, H = self.d_inner, self.ssm_state, self.ssm_groups, self.ssm_heads
-            per = D * (2 * din + 2 * G * N + H) + din * D  # in_proj + out_proj
-            per += (din + 2 * G * N) * 4 + 2 * H + 2 * D + din  # conv/dt/A/D/norms
-            return emb + L * per
+            return emb + L * self._mamba_params()
         att = D * self.n_heads * self.hd + 2 * D * self.n_kv_heads * self.hd \
             + self.n_heads * self.hd * D
         if self.family == "moe":
@@ -104,10 +111,8 @@ class ModelConfig:
         per = att + mlp + 2 * D
         total = emb + L * per
         if self.family == "hybrid":
-            din, N, G, H = self.d_inner, self.ssm_state, self.ssm_groups, self.ssm_heads
-            per_m = D * (2 * din + 2 * G * N + H) + din * D + \
-                (din + 2 * G * N) * 4 + 2 * H + 2 * D + din
-            total = emb + L * per_m + (att + 3 * D * F + 2 * D)  # one shared blk
+            total = emb + L * self._mamba_params() \
+                + (att + 3 * D * F + 2 * D)  # one shared blk
         return total
 
     def active_params_count(self) -> int:
@@ -119,6 +124,61 @@ class ModelConfig:
             + self.n_heads * self.hd * D
         mlp_active = self.topk * 3 * D * F + D * self.n_experts
         return self.vocab * D * 2 + L * (att + mlp_active + 2 * D)
+
+
+@dataclasses.dataclass(frozen=True)
+class Zamba2Config(ModelConfig):
+    """Zamba2's own form of the hybrid (models/model.py; Zamba,
+    arXiv:2405.16712, eq. 6), with ``shared_attn_every`` 0.  Before Mamba2
+    layer ``hybrid_layer_ids[u]`` shared block ``u % num_mem_blocks``
+    reads the stream concatenated with the embeddings (the attention's
+    input is ``2 * d_model`` wide, its softmax scale ``(hd / 2) ** -0.5``,
+    no RoPE), its gated-GELU MLP adds use u's rank-``adapter_rank`` adapter
+    to its gate and up products, and use u's own ``d_model x d_model``
+    matrix maps its output into that Mamba2 layer's input only."""
+
+    hybrid_layer_ids: Tuple[int, ...] = ()
+    num_mem_blocks: int = 2
+    adapter_rank: int = 128
+
+    def __post_init__(self):
+        # a JSON list: keep it hashable
+        object.__setattr__(self, "hybrid_layer_ids",
+                           tuple(self.hybrid_layer_ids))
+
+    @property
+    def attn_in(self) -> int:
+        """Width of the shared attention's input: the stream and the
+        embeddings side by side."""
+        return 2 * self.d_model
+
+    @property
+    def attn_scale(self) -> float:
+        """The shared attention's softmax scale, as ``transformers``'
+        ``modeling_zamba2.py``: the concatenation doubles the width."""
+        return (self.hd / 2) ** -0.5
+
+    def _shared(self):
+        """Parameters ``(of one shared block, of one use's adapter and
+        linear)``."""
+        D, F, Din = self.d_model, self.d_ff, self.attn_in
+        H, K, hd = self.n_heads, self.n_kv_heads, self.hd
+        att = Din * (H + 2 * K) * hd + H * hd * D + Din
+        use = D * self.adapter_rank + self.adapter_rank * 2 * F + D * D
+        return att + 3 * D * F + D, use
+
+    def params_count(self) -> int:
+        block, use = self._shared()
+        return self.vocab * self.d_model * 2 \
+            + self.n_layers * self._mamba_params() \
+            + self.num_mem_blocks * block + len(self.hybrid_layer_ids) * use
+
+    def active_params_count(self) -> int:
+        """Each use of a shared block counts, with its adapter and linear."""
+        block, use = self._shared()
+        return self.vocab * self.d_model * 2 \
+            + self.n_layers * self._mamba_params() \
+            + len(self.hybrid_layer_ids) * (block + use)
 
 
 # Reduced-config overrides for CPU smoke tests: same family/topology, tiny.

@@ -7,7 +7,12 @@ stubbed vision frontend), ``audio`` (encoder-only dense blocks with
 non-causal attention, fed ``embeds``; no cache, no decode: see
 ``runtime.make_encode_step``), ``ssm`` (Mamba2) and ``hybrid`` (Zamba2:
 Mamba2 blocks with one weight-shared dense block after every
-``shared_attn_every``-th of them).
+``shared_attn_every``-th of them, the reference's form; or Zamba2's own,
+a :class:`Zamba2Config`: before each Mamba2 layer that
+``hybrid_layer_ids`` names, use ``u`` of shared block ``u % num_mem_blocks`` reads the stream and the
+embeddings side by side and adds its output, through the use's own
+linear, to that layer's input only: ``h + mamba(norm(h + t))``; K/V a
+use, SSM and conv state a layer, the embeddings ``x0`` carried along).
 
 The reference stacks each parameter over a scanned layer axis (hybrids over
 ``(L/every, every)``) and runs ``lax.scan``; here a :class:`Model` holds one
@@ -65,11 +70,12 @@ from repro_torch.launch.partitioning import (gathered, logical_constraint,
                                              shard_index)
 from repro_torch.models.attention import update_positions
 from repro_torch.models.blocks import (CONV_KW, DenseBlock, Mamba2Block,
-                                      MoEBlock, dense_block_defs,
-                                      mamba2_block_defs, moe_block_defs)
-from repro_torch.models.config import ModelConfig
+                                      MoEBlock, SharedBlock, dense_block_defs,
+                                      mamba2_block_defs, moe_block_defs,
+                                      shared_block_defs, use_param_defs)
+from repro_torch.models.config import ModelConfig, Zamba2Config
 from repro_torch.models.layers import embed_lookup, rmsnorm
-from repro_torch.models.params import ParamDef, init_param
+from repro_torch.models.params import ParamDef, ParamModule, init_param
 from repro_torch.obs import trace as _obs
 
 __all__ = ["Model", "init_params", "load_jax_params", "decayed",
@@ -85,16 +91,53 @@ _KV = ("dense", "moe", "vlm")       # one k/v cache entry per layer
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in _ATTN + ("moe", "ssm", "hybrid"):
         raise ValueError(f"unknown family {cfg.family!r}")
+    if _zamba(cfg):
+        ids = cfg.hybrid_layer_ids
+        if cfg.family != "hybrid" or cfg.shared_attn_every \
+                or cfg.sliding_window is not None \
+                or cfg.num_mem_blocks < 1 or not ids \
+                or list(ids) != sorted(set(ids)) \
+                or not 0 <= ids[0] <= ids[-1] < cfg.n_layers:
+            raise ValueError(
+                f"Zamba2's form takes the hybrid family, increasing "
+                f"hybrid_layer_ids below n_layers {cfg.n_layers}, "
+                f"num_mem_blocks >= 1, no shared_attn_every and no "
+                f"sliding_window; got {cfg.family}, {ids}, "
+                f"{cfg.num_mem_blocks}, {cfg.shared_attn_every}, "
+                f"{cfg.sliding_window}")
+        return
     if cfg.family == "hybrid" and cfg.n_layers % cfg.shared_attn_every:
         raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
                          f"shared_attn_every {cfg.shared_attn_every}")
 
 
+def _zamba(cfg: ModelConfig) -> bool:
+    """Zamba2's own form of the hybrid."""
+    return isinstance(cfg, Zamba2Config)
+
+
+def _stacked(cfg: ModelConfig) -> bool:
+    """The reference's hybrid: its blocks in a ``(L/every, every)`` stack."""
+    return cfg.family == "hybrid" and not _zamba(cfg)
+
+
 def _n_scan(cfg: ModelConfig) -> int:
-    """The reference's scan length (super-layers for a hybrid)."""
-    if cfg.family == "hybrid":
+    """The reference's scan length (super-layers for a hybrid in its
+    form)."""
+    if _stacked(cfg):
         return cfg.n_layers // cfg.shared_attn_every
     return cfg.n_layers
+
+
+def _uses(cfg: ModelConfig) -> Dict[int, int]:
+    """Zamba2's form: ``{Mamba2 layer: use}`` of the shared blocks."""
+    return ({i: u for u, i in enumerate(cfg.hybrid_layer_ids)}
+            if _zamba(cfg) else {})
+
+
+def _block_of(cfg: ModelConfig, u: int) -> int:
+    """The shared block that use ``u`` runs: they alternate."""
+    return u % cfg.num_mem_blocks
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -122,9 +165,11 @@ def _block_defs(cfg: ModelConfig) -> Dict[str, Dict[str, ParamDef]]:
 
 
 class Model(nn.Module):
-    """embed, one block per layer, (hybrid) the shared block, final_ln,
-    head; parameter names follow the reference's tree (``blocks.3.mamba.
-    in_proj`` ↔ ``params["blocks"]["mamba"]["in_proj"][3]``)."""
+    """embed, one block per layer, (hybrid) the shared block (Zamba2's
+    form: ``shared.0`` .. and ``uses.0`` .., each use's adapter and
+    linear), final_ln, head; parameter names follow the reference's tree
+    (``blocks.3.mamba.in_proj`` ↔ ``params["blocks"]["mamba"]["in_proj"]
+    [3]``)."""
 
     def __init__(self, cfg: ModelConfig,
                  generator: Optional[torch.Generator], device):
@@ -138,7 +183,14 @@ class Model(nn.Module):
                  MoEBlock if cfg.family == "moe" else Mamba2Block)
         self.blocks = nn.ModuleList(block(cfg, generator, device)
                                     for _ in range(cfg.n_layers))
-        if cfg.family == "hybrid":
+        if _zamba(cfg):
+            self.shared = nn.ModuleList(
+                SharedBlock(cfg, generator, device)
+                for _ in range(cfg.num_mem_blocks))
+            self.uses = nn.ModuleList(
+                ParamModule(use_param_defs(cfg), generator, device)
+                for _ in cfg.hybrid_layer_ids)
+        elif cfg.family == "hybrid":
             self.shared = DenseBlock(cfg, generator, device)
         self.final_ln = nn.Parameter(init_param(top["final_ln"], generator,
                                                 device))
@@ -158,7 +210,13 @@ def param_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
     for i in range(cfg.n_layers):
         add(f"blocks.{i}", _block_defs(cfg))
-    if cfg.family == "hybrid":
+    if _zamba(cfg):
+        for b in range(cfg.num_mem_blocks):
+            add(f"shared.{b}", shared_block_defs(cfg))
+        for u in range(len(cfg.hybrid_layer_ids)):
+            out.update({f"uses.{u}.{name}": d
+                        for name, d in use_param_defs(cfg).items()})
+    elif cfg.family == "hybrid":
         add("shared", dense_block_defs(cfg))
     return out
 
@@ -209,12 +267,12 @@ def _ref_path(cfg: ModelConfig, name: str):
     if parts[0] != "blocks":
         return parts, ()
     i, every = int(parts[1]), cfg.shared_attn_every
-    idx = (i // every, i % every) if cfg.family == "hybrid" else (i,)
+    idx = (i // every, i % every) if _stacked(cfg) else (i,)
     return ("blocks",) + parts[2:], idx
 
 
 def _stack_shape(cfg: ModelConfig) -> tuple:
-    if cfg.family == "hybrid":
+    if _stacked(cfg):
         return (_n_scan(cfg), cfg.shared_attn_every)
     return (cfg.n_layers,)
 
@@ -319,9 +377,10 @@ def load_jax_params(cfg: ModelConfig, tree: Dict, device=None) -> Model:
 
 def cache_shapes(cfg: ModelConfig, batch: int, capacity: int) -> Dict:
     """``{name: (shape, dtype)}`` of the serving cache, as the reference's
-    ``cache_shapes``: k/v per attention application, one ``kv_positions``
-    shared by all of them, float32 SSM states and compute-dtype conv tails
-    per Mamba2 block; empty for an encoder-only (audio) model."""
+    ``cache_shapes``: k/v per attention application (Zamba2's form: a use),
+    one ``kv_positions`` shared by all of them, float32 SSM states and
+    compute-dtype conv tails per Mamba2 block; empty for an encoder-only
+    (audio) model."""
     _check_family(cfg)
     dt = _dtype(cfg.dtype)
     L = _n_scan(cfg)
@@ -334,14 +393,15 @@ def cache_shapes(cfg: ModelConfig, batch: int, capacity: int) -> Dict:
     elif cfg.family in ("ssm", "hybrid"):
         H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
         conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * N
-        nl = (L, cfg.shared_attn_every) if cfg.family == "hybrid" else (L,)
+        nl = (L, cfg.shared_attn_every) if _stacked(cfg) else (L,)
         out["ssm"] = (nl + (batch, H, P, N), torch.float32)
         out["conv"] = (nl + (batch, CONV_KW - 1, conv_dim), dt)
     if cfg.family == "hybrid":
         cap = capacity if cfg.sliding_window is None else min(
             capacity, cfg.sliding_window)
-        out["k"] = ((L, batch, cap, K, hd), dt)
-        out["v"] = ((L, batch, cap, K, hd), dt)
+        n_kv = len(cfg.hybrid_layer_ids) if _zamba(cfg) else L
+        out["k"] = ((n_kv, batch, cap, K, hd), dt)
+        out["v"] = ((n_kv, batch, cap, K, hd), dt)
         out["kv_positions"] = ((batch, cap), torch.int32)
     return out
 
@@ -466,6 +526,8 @@ def _forward_seq(model: Model, cfg: ModelConfig, h, positions,
         return sp(out[0]), out[-1]
 
     h = sp(h)
+    if _zamba(cfg):
+        return _zamba_seq(model, cfg, h, positions, collect_cache, remat, sp)
     kvs, ssms, convs, auxs = [], [], [], []
     for blocks, shared in _scan_steps(model, cfg):
         if remat:
@@ -487,6 +549,39 @@ def _forward_seq(model: Model, cfg: ModelConfig, h, positions,
     if ssms:
         ys.update(ssm=ssms, conv=convs)
     return h, ys, aux
+
+
+def _zamba_seq(model: Model, cfg: ModelConfig, h, positions,
+               collect_cache: bool, remat: bool, sp):
+    """:func:`_forward_seq` of Zamba2's form: a step a Mamba2 layer, led by
+    a use of a shared block where ``hybrid_layer_ids`` names the layer; the
+    embeddings ``x0`` are the input ``h``.  ``sp`` lays out the carry."""
+    x0, uses = h, _uses(cfg)
+    kvs, ssms, convs = [], [], []
+
+    def layer(i, h):
+        t = kv = None
+        if i in uses:
+            u = uses[i]
+            b = _block_of(cfg, u)
+            t, kv = model.shared[b](model.uses[u], h, x0, positions, u=u,
+                                    block=b, return_kv=collect_cache)
+        h, ssm, conv = model.blocks[i](h, t)
+        return sp(h), kv, ssm, conv
+
+    for i in range(cfg.n_layers):
+        if remat:
+            h = checkpoint(lambda x, i=i: layer(i, x)[0], h,
+                           use_reentrant=False)
+            continue
+        h, kv, ssm, conv = layer(i, h)
+        if kv is not None:
+            kvs.append(kv)
+        ssms.append(ssm)
+        convs.append(conv)
+    if not collect_cache:
+        return h, None, {}
+    return h, {"kv": kvs, "ssm": ssms, "conv": convs}, {}
 
 
 def _head_logits(model: Model, cfg: ModelConfig, h) -> torch.Tensor:
@@ -639,7 +734,7 @@ def prefill(model: Model, cfg: ModelConfig, batch: Dict,
     if "ssm" in ys:
         ssm = torch.stack(ys["ssm"]).float()
         conv = torch.stack(ys["conv"])
-        if cfg.family == "hybrid":
+        if _stacked(cfg):
             nl = (_n_scan(cfg), cfg.shared_attn_every)
             ssm = ssm.reshape(nl + ssm.shape[1:])
             conv = conv.reshape(nl + conv.shape[1:])
@@ -676,16 +771,26 @@ def _decode_step(model, cfg, batch, cache, pos):
         update_positions(kv_positions, pos)
     window = cfg.sliding_window
     every = cfg.shared_attn_every
+    stacked = _stacked(cfg)
+    x0, uses = h, _uses(cfg)        # Zamba2's form: the token's embedding
     for i, blk in enumerate(model.blocks):
         if cfg.family in _KV:
             h = blk.decode(h, pos, cache["k"][i], cache["v"][i],
                            kv_positions, window=window)
             continue
-        idx = (i // every, i % every) if cfg.family == "hybrid" else (i,)
-        h, conv, ssm = blk.decode(h, cache["conv"][idx], cache["ssm"][idx])
+        t = None
+        if i in uses:
+            u = uses[i]
+            b = _block_of(cfg, u)
+            t = model.shared[b].decode(model.uses[u], h, x0, pos,
+                                       cache["k"][u], cache["v"][u],
+                                       kv_positions, u=u, block=b)
+        idx = (i // every, i % every) if stacked else (i,)
+        h, conv, ssm = blk.decode(h, cache["conv"][idx], cache["ssm"][idx],
+                                  t)
         cache["conv"][idx] = conv
         cache["ssm"][idx] = ssm
-        if cfg.family == "hybrid" and (i + 1) % every == 0:
+        if stacked and (i + 1) % every == 0:
             j = i // every
             h = model.shared.decode(h, pos, cache["k"][j], cache["v"][j],
                                     kv_positions, window=window)

@@ -672,3 +672,65 @@ class TestServingSpans:
             assert set(cb) == set(ct)
             for k in cb:
                 assert torch.equal(cb[k], ct[k]), k
+
+
+def _zamba2():
+    """Zamba2's own form at a small size, bf16 over float32 masters: three
+    uses of two shared blocks before Mamba2 layers 2, 4 and 5 of 6."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(
+        configs.get_config("zamba2-2.7b-zyphra"), n_layers=6, d_model=64,
+        d_ff=96, vocab=128, n_heads=4, n_kv_heads=4, head_dim=32,
+        ssm_state=16, ssm_headdim=16, ssm_chunk=16,
+        hybrid_layer_ids=(2, 4, 5), num_mem_blocks=2, adapter_rank=4)
+    return cfg, init_params(cfg, torch.Generator().manual_seed(0),
+                            device=CPU)
+
+
+class TestZamba2Spans:
+    def test_shared_uses_mamba_layers_and_state_bytes(self):
+        from repro_torch.models import decode_step, prefill
+        from repro_torch.models.blocks import STATE_BYTES
+        cfg, model = _zamba2()
+        toks = torch.randint(0, cfg.vocab, (2, 12),
+                             generator=torch.Generator().manual_seed(1))
+        pos = torch.full((2,), 12, dtype=torch.int32)
+        base, _ = prefill(model, cfg, {"tokens": toks}, capacity=16)
+        assert obs.events() == []              # the tracer off: nothing
+        with obs.tracing():
+            lp, cache = prefill(model, cfg, {"tokens": toks}, capacity=16)
+            decode_step(model, cfg, {"tokens": toks[:, -1]}, cache, pos)
+        assert torch.equal(lp, base)
+        evs = [e for e in obs.events() if e["ph"] == "X"]
+        (root,) = [e for e in evs if e["name"] == "model.decode_step"]
+        state = sum(cache[k].numel() * cache[k].element_size()
+                    for k in ("ssm", "conv"))
+        per_use = {}
+        for u in range(3):
+            ws = [getattr(model.shared[u % 2].attn, n)
+                  for n in ("wq", "wk", "wv", "wo")] \
+                + [getattr(model.shared[u % 2].mlp, n)
+                   for n in ("w_gate", "w_up", "w_down")] \
+                + list(model.uses[u].parameters())
+            per_use[u] = 2 * sum(w.numel() for w in ws)      # bf16 bytes
+        for decode in (False, True):
+            group = [e for e in evs if (e["root"] == root["id"]) == decode]
+            shared = [e for e in group if e["name"] == "hybrid.shared"]
+            assert [(e["args"]["use"], e["args"]["block"]) for e in shared] \
+                == [(0, 0), (1, 1), (2, 0)]
+            for e in shared:
+                kids = [k for k in evs if k["parent"] == e["id"]]
+                assert [k["name"] for k in kids] == ["attention",
+                                                     "hybrid.mlp"]
+                casts = sum(x.get("counts", {}).get("weights.cast_bytes", 0)
+                            for x in kids + [e])
+                assert casts == per_use[e["args"]["use"]]
+            mamba = [e for e in group if e["name"] == "mamba"]
+            assert len(mamba) == cfg.n_layers
+            got = sum(e["counts"][STATE_BYTES] for e in mamba)
+            # prefill writes each layer's states; a decode step reads
+            # and writes them
+            assert got == (2 if decode else 1) * state
