@@ -148,13 +148,20 @@ Phases (any failure exits non-zero; nothing is caught):
    parameter after AdamW against the CPU's AdamW fed the card's gradients,
    at phase 10's tolerances, but for the bf16 per-head gradients
    (``A_log``, ``dt_bias``), held to a relative L2 error of 0.1 (see
-   ``train_card_vs_cpu``); (d) ``launch.train.train("zamba2-2.7b", smoke=False,
+   ``train_card_vs_cpu``); the card's forward launches one ``mix_in`` and
+   one ``mix_out`` a Mamba2 layer, and in bf16, where the mix kernels
+   round less often than the plain path, the card's gradients through
+   them are held to be at least as near the float32 gradients (the same
+   weights and batch, on the card) as the CPU's, each in relative L2,
+   while those of the card's plain route meet the rules above; (d)
+   ``launch.train.train("zamba2-2.7b", smoke=False,
    seq=2048, batch=1, steps=8)`` (``remat="none"``, as the reference's
    ``train``) on its local mesh, ``(1, 1)`` over the card: every
    parameter, AdamW moment and batch array a DTensor on that CUDA mesh;
    seconds per step (median after the first), tokens/s, peak
-   memory, every loss finite, and exactly 54 ``ssd`` + 54 ``ssd_bwd`` and
-   9 ``flash_attention`` + 9 ``flash_attention_bwd`` launches in every
+   memory, every loss finite, and exactly 54 ``ssd`` + 54 ``ssd_bwd``,
+   54 ``mix_in`` + 54 ``mix_out`` (on the mesh's local shards) and 9
+   ``flash_attention`` + 9 ``flash_attention_bwd`` launches in every
    step; its last step under ``torch.profiler`` (device ms by kernel
    kind); then ``make_train_step`` with the config's own ``remat="full"``
    at 2 x 2048 for 3 steps, where the forward kernels launch twice a step;
@@ -259,6 +266,29 @@ Phases (any failure exits non-zero; nothing is caught):
    records.  ``python3 -c "import chip_smoke; chip_smoke.zyphra_bench()"``
    runs it alone with its builds.
 
+19. the Mamba2 mix kernels (``kernels.mamba2_mix``, ``mix_in`` and
+   ``mix_out`` around the SSD scan): against their plain version at
+   Zyphra's widths, B 8 x {768, 1536, 3840} (within 2e-2 of each output's
+   largest value, the tests' bf16 rule, and at least as near the float32
+   computation on the same operands as the plain route; two calls bitwise
+   equal), timed there beside their byte bound
+   (``ops.io_bytes``) and the plain route; the float32 instance against
+   the plain route at 2 x 768 (1e-5 of the largest value); then Zyphra's
+   form at full width, a prefill of 8 x {3840, 1536, 768} tokens: exactly
+   54 ``mix_in`` and 54 ``mix_out`` launches a prefill, and where its
+   device time goes (CUDA events around the program's pieces on its one
+   stream, 3 warm prefills a shape: the mixers without the scan and,
+   inside them, ``mix_in`` and ``mix_out``; the scans; shared attention
+   and its flash; the shared MLPs; the rest), with the SM clock and power
+   that ``nvidia-smi`` samples through them; the same 8 x 3840 split by
+   the plain route (no mix launch), and the scan and the hd-160 flash at
+   8 x 3840 timed right after ``mix_out``'s kernel, after the plain
+   ``mix_out`` passes and after a spin: the ``mamba2_mix_in`` and
+   ``mamba2_mix_out`` records.  Phases 9 and 18 count their launches, one
+   each a Mamba2 layer a prefill, and phase 15's olmoe and vlm prefills
+   none.  ``python3 -c "import chip_smoke; chip_smoke.mamba2_mix_bench()"``
+   runs it alone with its build.
+
 The card's ``nvidia-smi`` line comes two lines before the end, then
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -302,6 +332,8 @@ ADMISSION = "src/repro_torch/kernels/admission/csrc/admission.cu"
 SOURCES.update(admit_columns=ADMISSION, admit_drain=ADMISSION)
 SOURCES["decode_attention"] = ("src/repro_torch/kernels/decode_attention/"
                                "csrc/decode_attention.cu")
+MAMBA2_MIX = "src/repro_torch/kernels/mamba2_mix/csrc/mamba2_mix.cu"
+SOURCES.update(mamba2_mix_in=MAMBA2_MIX, mamba2_mix_out=MAMBA2_MIX)
 # The backward kernels have no Pallas counterpart: the reference trains
 # through the XLA forms of the two layers and JAX's autodiff of them.
 REPLACES = {"oom_probe": "src/repro/kernels/wastage/kernel.py:67",
@@ -318,7 +350,10 @@ REPLACES = {"oom_probe": "src/repro/kernels/wastage/kernel.py:67",
             "admit_columns": "src/repro/sched/admission.py:100",
             "admit_drain": "src/repro/sched/admission.py:166",
             # no TPU kernel: the reference's decode is a plain einsum
-            "decode_attention": "none (src/repro/models/attention.py:146)"}
+            "decode_attention": "none (src/repro/models/attention.py:146)",
+            # no TPU kernel: the reference's mixer is plain XLA
+            "mamba2_mix_in": "none (src/repro/models/mamba2.py:133)",
+            "mamba2_mix_out": "none (src/repro/models/mamba2.py:133)"}
 KW = dict(seed=0, train_frac=0.5, k=4, machine_memory=128.0)  # the cells
 ARCH = "zamba2-2.7b"
 SERVE_BATCHES = ((4, 2048), (3, 1000))  # (requests, prompt tokens)
@@ -1055,6 +1090,7 @@ def serve(model, cfg, batches, new_tokens, seed, feed=None):
     Returns one record per batch."""
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba2_mix import ops as mops
     from repro_torch.kernels.ssd import ops as sops
     from repro_torch.runtime import make_decode_step, make_prefill_step
     rng = np.random.default_rng(seed)
@@ -1071,6 +1107,7 @@ def serve(model, cfg, batches, new_tokens, seed, feed=None):
         batch = {"tokens": toks} if feed is None else feed(rng, Bsz, S)
         dropped.clear()
         before = (sops.LAUNCHES["ssd"], fops.LAUNCHES["flash_attention"])
+        mix_before = dict(mops.LAUNCHES)
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         allocated = torch.cuda.memory_allocated()
@@ -1081,6 +1118,8 @@ def serve(model, cfg, batches, new_tokens, seed, feed=None):
         prefill_memory = step_memory(allocated, tensor_bytes(model, batch))
         launched = (sops.LAUNCHES["ssd"] - before[0],
                     fops.LAUNCHES["flash_attention"] - before[1])
+        mix_launched = {k: v - mix_before[k]
+                        for k, v in mops.LAUNCHES.items()}
         finite = torch.isfinite(logits).all()
         tok = logits[:, -1].argmax(-1)
         zeros = torch.zeros((Bsz, 1, cfg.d_model), device="cuda")
@@ -1107,6 +1146,7 @@ def serve(model, cfg, batches, new_tokens, seed, feed=None):
                                             decode_launches[1]},
                     "decode_attention_launches":
                         dops.LAUNCHES["decode_attention"] - decode_before,
+                    "mix_launches": mix_launched,
                     "finite": bool(finite), "last_tokens": tok.tolist(),
                     "prefill_memory": prefill_memory})
         if dropped:
@@ -2513,7 +2553,7 @@ def layout_of(model, opt, batch):
 
 class TrainSteps:
     """While active, ``launch.train``'s ``make_train_step`` hands out steps
-    that record each step's kernel launches (the four LM counters, read
+    that record each step's kernel launches (the six LM counters, read
     just before and just after the step) and run step ``profile_at`` under
     ``torch.profiler``.  It only records."""
 
@@ -2524,11 +2564,12 @@ class TrainSteps:
 
     def __enter__(self):
         from repro_torch.kernels.flash_attention import ops as fops
+        from repro_torch.kernels.mamba2_mix import ops as mops
         from repro_torch.kernels.ssd import ops as sops
         self.orig = orig = self.mod.make_train_step
 
         def counts():
-            return {**sops.LAUNCHES, **fops.LAUNCHES}
+            return {**sops.LAUNCHES, **fops.LAUNCHES, **mops.LAUNCHES}
 
         def make(*args, **kw):
             step_fn = orig(*args, **kw)
@@ -2622,7 +2663,15 @@ def train_card_vs_cpu(dtype_name, seed=1, S=300, cfg=None):
     more than 3e-2 of the tensor's largest element (``A_log``: 1.15e-6
     against 7.55e-7 allowed, one element in 80), while the relative L2
     error stays at 3.1-3.4 % and the float32 run agrees to 2.5e-7
-    everywhere."""
+    everywhere.  In bf16 those rules hold the card's plain route (the
+    mixers' plain version); through the mix kernels, which take the conv,
+    the gate and the norm in float32 where the plain path rounds each step
+    to bf16, the card's gradients are instead held to be at least as near
+    the float32 step's (same weights and batch, on the card) as the CPU's,
+    each in relative L2: against the CPU elementwise, sums that cancel
+    differ by more than the rule (8 of 66 tensors, one to a few elements
+    each, while every one of the 66 is nearer float32).  Returns the
+    elementwise record and that of the nearness."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2639,12 +2688,39 @@ def train_card_vs_cpu(dtype_name, seed=1, S=300, cfg=None):
     batch = {k: torch.as_tensor(v) for k, v in
              host_batch(cfg, S, 1, 1, seed=seed).items()}
     card_batch = {k: v.cuda() for k, v in batch.items()}
-    sides = {}
-    for side, model, bt in (("card", card, card_batch), ("cpu", cpu, batch)):
+    from repro_torch.kernels.mamba2_mix import ops as mops
+    from repro_torch.kernels.ssd import ops as sops
+
+    def loss_and_grads(model, cfg, bt):
         named = dict(model.named_parameters())
         loss, _ = forward_train(model, cfg, bt)
-        sides[side] = (loss.detach(), dict(zip(named, torch.autograd.grad(
-            loss, list(named.values())))))
+        return loss.detach(), dict(zip(named, torch.autograd.grad(
+            loss, list(named.values()))))
+
+    sides = {}
+    before = (sops.LAUNCHES["ssd"], dict(mops.LAUNCHES))
+    sides["card"] = loss_and_grads(card, cfg, card_batch)
+    # one mix_in and one mix_out a Mamba2 layer, as many as the scans
+    n_ssd = sops.LAUNCHES["ssd"] - before[0]
+    mixed = {k: v - before[1][k] for k, v in mops.LAUNCHES.items()}
+    if mixed != {"mix_in": n_ssd, "mix_out": n_ssd}:
+        raise AssertionError(f"{dtype_name} train forward on the card: mix "
+                             f"launches {mixed}, want {n_ssd} each")
+    sides["cpu"] = loss_and_grads(cpu, cfg, batch)
+    if dtype_name != "float32":
+        # the card's plain route (the mixers' plain version, the route
+        # before the mix kernels), and the step in float32 on the card
+        on_card = mops._on_card
+        mops._on_card = lambda t: False
+        try:
+            sides["card_plain"] = loss_and_grads(card, cfg, card_batch)
+        finally:
+            mops._on_card = on_card
+        f32 = dataclasses.replace(cfg, dtype="float32")
+        exact = init_params(f32, None, device="cuda")
+        exact.load_state_dict(card.state_dict())
+        sides["float32"] = loss_and_grads(exact, f32, card_batch)
+        del exact
     step_fn = make_train_step(cfg, peak_lr=1e-3, warmup_steps=1,
                               total_steps=10)
     m = step_fn(card, adamw_init(dict(card.named_parameters())), card_batch,
@@ -2668,19 +2744,38 @@ def train_card_vs_cpu(dtype_name, seed=1, S=300, cfg=None):
                 msg=lambda x: f"{dtype_name} {what}: {x}")
         worst[what] = (float((a - b).abs().max()), scale, rel_l2)
 
+    def nearer(what, a, b, exact):
+        """The card's bf16 gradient at least as near the float32 one as
+        the CPU's (relative L2)."""
+        exact = exact.detach().float()
+        norm = float(torch.linalg.vector_norm(exact)) or 1e-30
+        e_card = float(torch.linalg.vector_norm(a.detach().float() - exact))
+        e_cpu = float(torch.linalg.vector_norm(b.detach().float().cuda()
+                                               - exact))
+        if e_card > e_cpu:
+            raise AssertionError(
+                f"{dtype_name} {what}: the card {e_card / norm:.4g} from "
+                f"float32, the cpu {e_cpu / norm:.4g}")
+        nearest[what] = (e_card / norm, e_cpu / norm)
+
     card_grads = sides["card"][1]
     loss, grads = sides["cpu"]
+    nearest = {}
     close("loss", sides["card"][0], loss)
     close("loss after the step", m["loss"], loss)
     for n, g in grads.items():
-        close(f"grad {n}", card_grads[n], g)
+        if dtype_name == "float32":
+            close(f"grad {n}", card_grads[n], g)
+        else:
+            close(f"grad {n}", sides["card_plain"][1][n], g)  # plain route
+            nearer(f"grad {n}", card_grads[n], g, sides["float32"][1][n])
     named = dict(cpu.named_parameters())
     adamw_update({n: g.cpu() for n, g in card_grads.items()},
                  adamw_init(named), named, lr=m["lr"],
                  decay=decayed(cfg, named))
     for n, p in card.named_parameters():
         close(f"param {n}", p, named[n])
-    return worst
+    return worst, nearest
 
 
 def train_full(seq=2048, steps=8):
@@ -2688,25 +2783,29 @@ def train_full(seq=2048, steps=8):
     full width and depth, ``remat="none"`` as the reference's ``train``
     sets it; the launch counters are set to 0 just before and read just
     after.  Returns its record; raises unless every loss is finite and
-    every step launched exactly one ``ssd`` and ``ssd_bwd`` per Mamba2
-    block and one ``flash_attention`` and ``flash_attention_bwd`` per
-    shared-block application."""
+    every step launched exactly one ``ssd``, ``ssd_bwd``, ``mix_in`` and
+    ``mix_out`` per Mamba2 block (the mix kernels' backward is their plain
+    version's, recomputed: no launch) and one ``flash_attention`` and
+    ``flash_attention_bwd`` per shared-block application, on the mesh's
+    local shards."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba2_mix import ops as mops
     from repro_torch.kernels.ssd import ops as sops
     from repro_torch.launch.train import train
     cfg = get_config(ARCH)
-    for o in (sops, fops):
+    for o in (sops, fops, mops):
         o.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     with TrainSteps(profile_at=steps - 1) as rec:
         out = train(ARCH, smoke=False, seq=seq, batch=1, steps=steps,
                     monitor=True, log_every=1)
-    launches = {**sops.LAUNCHES, **fops.LAUNCHES}
+    launches = {**sops.LAUNCHES, **fops.LAUNCHES, **mops.LAUNCHES}
     n_ssd = cfg.n_layers
     n_attn = cfg.n_layers // cfg.shared_attn_every
     want = {"ssd": n_ssd, "ssd_bwd": n_ssd, "flash_attention": n_attn,
-            "flash_attention_bwd": n_attn}
+            "flash_attention_bwd": n_attn, "mix_in": n_ssd,
+            "mix_out": n_ssd}
     for i, got in enumerate(rec.launches):
         if got != want:
             raise AssertionError(f"train step {i} launched {got}, want "
@@ -2741,6 +2840,7 @@ def train_remat(batch=2, seq=2048, steps=3):
     from repro_torch.configs import get_config
     from repro_torch.data import host_batch
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba2_mix import ops as mops
     from repro_torch.kernels.ssd import ops as sops
     from repro_torch.models import init_params
     from repro_torch.optim import adamw_init
@@ -2753,20 +2853,21 @@ def train_remat(batch=2, seq=2048, steps=3):
     n_ssd = cfg.n_layers
     n_attn = cfg.n_layers // cfg.shared_attn_every
     want = {"ssd": 2 * n_ssd, "ssd_bwd": n_ssd,
-            "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn}
+            "flash_attention": 2 * n_attn, "flash_attention_bwd": n_attn,
+            "mix_in": 2 * n_ssd, "mix_out": 2 * n_ssd}
     torch.cuda.reset_peak_memory_stats()
     secs, losses = [], []
     for step in range(steps):
         bt = {k: torch.as_tensor(v, device="cuda") for k, v in
               host_batch(cfg, seq, batch, step).items()}
-        for o in (sops, fops):
+        for o in (sops, fops, mops):
             o.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = step_fn(model, opt, bt, step)
         losses.append(float(m["loss"]))
         secs.append(time.perf_counter() - t0)
-        got = {**sops.LAUNCHES, **fops.LAUNCHES}
+        got = {**sops.LAUNCHES, **fops.LAUNCHES, **mops.LAUNCHES}
         if got != want:
             raise AssertionError(f"remat step {step} launched {got}, want "
                                  f"{want}")
@@ -2920,7 +3021,7 @@ def training(kernels, err, built):
     del flash, ssd
     for dtype_name in ("float32", "bfloat16"):
         t0 = time.perf_counter()
-        worst = train_card_vs_cpu(dtype_name)
+        worst, nearest = train_card_vs_cpu(dtype_name)
         diff = max(d for d, _, _ in worst.values())
         rel = max(r for _, _, r in worst.values())
         n_grads = sum(k.startswith("grad") for k in worst)
@@ -2933,6 +3034,12 @@ def training(kernels, err, built):
             f" max relative L2 {rel:.3g} (per-head gradients {per_head:.3g})"
             f" ({time.perf_counter() - t0:.1f} s); loss (diff, value, rel)"
             f" {worst['loss']}")
+        if nearest:
+            log(f"phase 14: {dtype_name} gradients through the mix kernels "
+                f"at least as near float32 as the cpu's in all "
+                f"{len(nearest)} (relative L2, largest: card "
+                f"{max(a for a, _ in nearest.values()):.4g}, cpu "
+                f"{max(b for _, b in nearest.values()):.4g})")
     torch.cuda.empty_cache()
     full = train_full()
     prof = full["profile_last_step"]
@@ -2980,9 +3087,10 @@ def train_bench():
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba2_mix import ops as mops
     from repro_torch.kernels.ssd import ops as sops
     log(device_line())
-    built = build.build_all([sops.SOURCE, fops.SOURCE])
+    built = build.build_all([sops.SOURCE, fops.SOURCE, mops.SOURCE])
     kernels = []
     err = dict.fromkeys(list(REPLACES), 0.0)
     training(kernels, err, built)
@@ -3074,8 +3182,18 @@ def check_served(records, want_flash, what):
         if any(r["decode_launches"].values()):
             raise AssertionError(f"{what}: decode launched a prefill kernel")
         check_decode_launches(r, want_flash, what)
+        check_mix_launches(r, 0, what)
         if not r["finite"]:
             raise AssertionError(f"{what}: non-finite logits")
+
+
+def check_mix_launches(r, layers, what):
+    """One ``mix_in`` and one ``mix_out`` a Mamba2 layer a prefill (none
+    where the model has no Mamba2 layer)."""
+    if r["mix_launches"] != {"mix_in": layers, "mix_out": layers}:
+        raise AssertionError(f"{what}: the prefill launched "
+                             f"{r['mix_launches']} Mamba2 mix kernels, want "
+                             f"{layers} each")
 
 
 def check_decode_launches(r, layers, what):
@@ -3251,7 +3369,7 @@ def olmoe_card_vs_cpu(seed=1, S=300, steps=4):
     if cfg.remat != "full":
         raise AssertionError(f"{OLMOE}'s config remats {cfg.remat!r}")
     out["train_step float32"] = train_card_vs_cpu("float32", seed=seed, S=S,
-                                                  cfg=cfg)
+                                                  cfg=cfg)[0]
     torch.cuda.empty_cache()
     return out
 
@@ -3896,6 +4014,7 @@ def zyphra_serving():
             raise AssertionError(f"{ZYPHRA}: decode launched a prefill "
                                  f"kernel")
         check_decode_launches(r, uses, ZYPHRA)
+        check_mix_launches(r, cfg.n_layers, ZYPHRA)
         if not r["finite"]:
             raise AssertionError(f"{ZYPHRA}: non-finite logits")
     scales = {key[-1] for key in flash.seen | decode.seen}
@@ -4052,6 +4171,360 @@ def zyphra_bench():
     print(json.dumps({"kernels": kernels}), flush=True)
 
 
+# ------------------------------------------------------------- phase 19
+MIX_PROMPTS = ZYPHRA_PROMPTS   # B 8 x these: the zamba2 cell's prefills
+SPLIT_RUNS = 3                 # warm prefills a shape in the split
+
+
+def _nearer(got, plain, exact, what):
+    """The kernel at least as near the float32 computation as the plain
+    bf16 route (the kernel rounds once where the plain route rounds each
+    step); returns both largest errors."""
+    e_k = float((got.float() - exact).abs().max())
+    e_p = float((plain.float() - exact).abs().max())
+    if e_k > e_p:
+        raise AssertionError(f"{what}: the kernel is {e_k:.3g} from the "
+                             f"float32 computation, the plain route {e_p:.3g}")
+    return [e_k, e_p]
+
+
+def mix_kernels(cfg, err):
+    """19 (a): ``mix_in`` and ``mix_out`` against the plain route at the
+    cell's prefill shapes (within 2e-2 of the output's largest value, the
+    tests' bf16 rule, and at least as near the same computation in float32
+    on the same inputs), two calls bitwise equal, then timed beside the
+    byte bound and the plain route; the float32 instance against the plain
+    route at 2 x 768 (1e-5 of the largest value)."""
+    from repro_torch.kernels.mamba2_mix import ops as mops
+    din, H, G, N = (cfg.d_inner, cfg.ssm_heads, cfg.ssm_groups,
+                    cfg.ssm_state)
+    out = {"mamba2_mix_in": [], "mamba2_mix_out": []}
+    for S in MIX_PROMPTS:
+        B = ZYPHRA_B
+        p, zx, Y = mops.ref.case(cfg, B, S, torch.bfloat16, "cuda", seed=S)
+        args_in = (zx, p.conv_w, p.conv_b, p.dt_bias, p.A_log, din, G, N)
+        what = f"{ZYPHRA} {(B, S)}"
+        near = {}
+        with torch.no_grad():
+            got = mops.mix_in(*args_in)
+            again = mops.mix_in(*args_in)
+            want = mops.ref.mix_in(*args_in)
+            # the same computation in float32 on the same bf16 operands
+            # (weights, bias and D rounded to bf16 as both routes take them)
+            rounded = {k: getattr(p, k).to(zx.dtype).float()
+                       for k in ("conv_w", "conv_b", "D")}
+            exact = mops.ref.mix_in(zx.float(), rounded["conv_w"],
+                                    rounded["conv_b"], *args_in[3:])
+            for i, name in enumerate(("X", "Adt", "Bm", "Cm")):
+                a, b = got[i], want[i]
+                if not torch.equal(a, again[i]):
+                    raise AssertionError(f"mix_in {what}: two calls differ "
+                                         f"in {name}")
+                tol = 2e-2 * float(b.float().abs().max())
+                _close(a, b, (0.0, tol), f"mix_in {what} {name}", err,
+                       "mamba2_mix_in")
+                if name != "Adt":   # the same float32 product, rounded
+                    near[name] = _nearer(a, b, exact[i],
+                                         f"mix_in {what} {name}")
+            x_exact = exact[4].to(zx.dtype).float()
+            del got, again, exact
+            args_out = (Y, zx, p.conv_w, p.conv_b, p.D, p.norm_scale,
+                        cfg.norm_eps)
+            y = mops.mix_out(*args_out)
+            if not torch.equal(y, mops.mix_out(*args_out)):
+                raise AssertionError(f"mix_out {what}: two calls differ")
+            x = want[4]
+            y_want = mops.ref.mix_out(Y, zx, x, p.D, p.norm_scale,
+                                      cfg.norm_eps)
+            _close(y, y_want, (0.0, 2e-2 * float(y_want.float().abs().max())),
+                   f"mix_out {what}", err, "mamba2_mix_out")
+            near["y"] = _nearer(y, y_want, mops.ref.mix_out(
+                Y.float(), zx.float(), x_exact, rounded["D"],
+                p.norm_scale, cfg.norm_eps), f"mix_out {what}")
+            del y, y_want, want, x_exact
+            for name, kernel, plain in (
+                    ("mamba2_mix_in", lambda: mops.mix_in(*args_in),
+                     lambda: mops.ref.mix_in(*args_in)),
+                    ("mamba2_mix_out", lambda: mops.mix_out(*args_out),
+                     lambda: mops.ref.mix_out(Y, zx, x, p.D, p.norm_scale,
+                                              cfg.norm_eps))):
+                ms = time_ms(kernel)
+                plain_ms = time_ms(plain, reps=5)
+                nbytes = mops.io_bytes(B, S, din, H, G, N, name[7:])
+                bound_ms, bound_by = _bound(nbytes, 0)
+                out[name].append({
+                    "shape": [B, S, din, H, G, N], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "bytes": nbytes,
+                    "err_vs_f32_kernel_plain": {
+                        k: v for k, v in near.items()
+                        if (k == "y") == (name == "mamba2_mix_out")}})
+        del zx, p, Y, x
+        torch.cuda.empty_cache()
+    p, zx, Y = mops.ref.case(cfg, 2, MIX_PROMPTS[0], torch.float32, "cuda",
+                             seed=1)
+    with torch.no_grad():
+        args_in = (zx, p.conv_w, p.conv_b, p.dt_bias, p.A_log, din, G, N)
+        want = mops.ref.mix_in(*args_in)
+        for name, a, b in zip(("X", "Adt", "Bm", "Cm"),
+                              mops.mix_in(*args_in), want):
+            _close(a, b, (0.0, 1e-5 * float(b.abs().max())),
+                   f"mix_in float32 {name}", err, "mamba2_mix_in")
+        y_want = mops.ref.mix_out(Y, zx, want[4], p.D, p.norm_scale,
+                                  cfg.norm_eps)
+        _close(mops.mix_out(Y, zx, p.conv_w, p.conv_b, p.D, p.norm_scale,
+                            cfg.norm_eps), y_want,
+               (0.0, 1e-5 * float(y_want.abs().max())), "mix_out float32",
+               err, "mamba2_mix_out")
+    return out
+
+
+def neighbours(cfg):
+    """19 (c): the scan and the hd-160 flash at 8 x 3840 timed alone (CUDA
+    events around each call, no L2 flush, the median of 15) right after
+    ``mix_out``'s kernel, right after the plain ``mix_out`` passes and
+    right after a spin of the card (its SMs idle), to see whether their
+    neighbours slow them."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba2_mix import ops as mops
+    from repro_torch.kernels.ssd import ops as sops
+    din, G, N = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
+    S = MIX_PROMPTS[-1]
+    p, zx, Y = mops.ref.case(cfg, ZYPHRA_B, S, torch.bfloat16, "cuda",
+                             seed=19)
+    out = {}
+    with torch.no_grad():
+        X, Adt, Bm, Cm = mops.mix_in(zx, p.conv_w, p.conv_b, p.dt_bias,
+                                     p.A_log, din, G, N)
+        x = mops.ref.conv_x(zx, p.conv_w, p.conv_b, cfg.ssm_heads)
+        q, k, v, _, _ = flash_case(np.random.default_rng(19), ZYPHRA_B, S, S,
+                                   cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                   torch.bfloat16)
+        before = {
+            "after_mix_out_kernel": lambda: mops.mix_out(
+                Y, zx, p.conv_w, p.conv_b, p.D, p.norm_scale, cfg.norm_eps),
+            "after_plain_mix_out": lambda: mops.ref.mix_out(
+                Y, zx, x, p.D, p.norm_scale, cfg.norm_eps),
+            "after_spin": lambda: torch.cuda._sleep(4_000_000)}
+        targets = {
+            "ssd": lambda: sops.ssd(X, Adt, Bm, Cm, cfg.ssm_chunk),
+            "flash": lambda: fops.flash_attention(q, k, v, causal=True,
+                                                  scale=cfg.attn_scale)}
+        for tname, target in targets.items():
+            target()
+            for bname, first in before.items():
+                times = []
+                for _ in range(15):
+                    first()
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    target()
+                    e1.record()
+                    torch.cuda.synchronize()
+                    times.append(e0.elapsed_time(e1))
+                out[f"{tname}_{bname}_ms"] = float(np.median(times))
+    del p, zx, Y, X, Adt, Bm, Cm, x, q, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+class Clocks:
+    """While active, ``nvidia-smi`` samples the card's SM clock (MHz) and
+    power draw (W) every 20 ms; ``summary`` holds their mean, least and
+    most over the samples."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "20"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        time.sleep(0.5)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        text = self.proc.communicate(timeout=10)[0]
+        rows = []
+        for line in text.splitlines():
+            try:
+                rows.append([float(f) for f in line.split(",")])
+            except ValueError:
+                continue
+        self.summary = {"samples": len(rows)}
+        for i, name in enumerate(("sm_mhz", "power_w")):
+            vals = [r[i] for r in rows if len(r) == 2]
+            if vals:
+                self.summary[name] = {"mean": float(np.mean(vals)),
+                                      "min": min(vals), "max": max(vals)}
+
+
+def prefill_split(model, cfg, Bsz, S, runs=SPLIT_RUNS, plain=False):
+    """19 (b): one ``Bsz`` x ``S`` prefill's device ms by piece, CUDA events
+    around the program's pieces on its one stream (the mean of ``runs``
+    warm prefills), the mix kernels' launches a prefill and the card's SM
+    clock and power through the prefills (:class:`Clocks`).  ``plain``
+    sends the mixer's CUDA tensors to its plain version (the route before
+    the kernels), for the comparison of 19 (c)."""
+    from collections import defaultdict
+
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba2_mix import ops as mops
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.models import blocks
+    from repro_torch.runtime import make_prefill_step
+    pending = []
+
+    def timed(name, fn):
+        def wrapped(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            pending.append((name, e0, e1))
+            return out
+        return wrapped
+
+    pieces = ((blocks, "_attend", "shared_attention"),
+              (blocks, "_shared_mlp", "shared_mlp"),
+              (blocks, "mamba2_mixer", "mamba_mixer"),
+              (sops, "ssd", "ssd"), (fops, "flash_attention", "flash"),
+              (mops, "mix_in", "mix_in"), (mops, "mix_out", "mix_out"))
+    toks = torch.as_tensor(np.random.default_rng(S).integers(
+        0, cfg.vocab, (Bsz, S)), dtype=torch.int32, device="cuda")
+    step = make_prefill_step(cfg, capacity=S + NEW_TOKENS)
+    step(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    orig = {(mod, name): getattr(mod, name) for mod, name, _ in pieces}
+    on_card = mops._on_card
+    acc = defaultdict(float)
+    launches = []
+    clocks = Clocks()
+    try:
+        if plain:
+            mops._on_card = lambda t: False
+        for mod, name, label in pieces:
+            setattr(mod, name, timed(label, getattr(mod, name)))
+        clocks.__enter__()
+        for _ in range(runs):
+            pending.clear()
+            before = dict(mops.LAUNCHES)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = step(model, {"tokens": toks})
+            e1.record()
+            torch.cuda.synchronize()
+            launches.append({k: v - before[k]
+                             for k, v in mops.LAUNCHES.items()})
+            acc["total"] += e0.elapsed_time(e1) / runs
+            for name, a, b in pending:
+                acc[name] += a.elapsed_time(b) / runs
+            del out
+    finally:
+        if hasattr(clocks, "proc"):
+            clocks.__exit__()
+        mops._on_card = on_card
+        for (mod, name), fn in orig.items():
+            setattr(mod, name, fn)
+    acc["mamba_mixer_without_ssd"] = acc["mamba_mixer"] - acc["ssd"]
+    acc["rest"] = (acc["total"] - acc["mamba_mixer"]
+                   - acc["shared_attention"] - acc["shared_mlp"])
+    n = 0 if plain else cfg.n_layers
+    if any(got != {"mix_in": n, "mix_out": n} for got in launches):
+        raise AssertionError(f"{ZYPHRA} {Bsz} x {S}: mix launches a prefill "
+                             f"{launches}, want {n} each")
+    return {"requests": Bsz, "prompt": S, "launches_per_prefill":
+            launches[0], "clocks": clocks.summary,
+            **{k: float(v) for k, v in acc.items()}}
+
+
+def mamba2_mix_phase(err, launches=None):
+    """Phase 19 (see the module docstring): the ``mamba2_mix_in`` and
+    ``mamba2_mix_out`` records; ``launches`` is the main path's count
+    (phase 9's zamba2 serve), or the split's prefills' when None."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    t0 = time.perf_counter()
+    cfg = get_config(ZYPHRA)
+    err.setdefault("mamba2_mix_in", 0.0)
+    err.setdefault("mamba2_mix_out", 0.0)
+    timed = mix_kernels(cfg, err)
+    for name, cases in timed.items():
+        for e in cases:
+            log(f"phase 19: {name} {e['shape']}: {e['ms']:.4f} ms (plain "
+                f"{e['plain_ms']:.4f}, bound {e['bound_ms']:.4f} by "
+                f"{e['bound_by']}, {e['bound_ms'] / e['ms']:.1%} of it); == "
+                f"plain, two calls bitwise; largest error against float32, "
+                f"kernel and plain: {e['err_vs_f32_kernel_plain']}")
+    log(f"phase 19: max abs err mix_in {err['mamba2_mix_in']:.3g}, mix_out "
+        f"{err['mamba2_mix_out']:.3g}")
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    splits = []
+    with torch.no_grad():
+        for S in reversed(MIX_PROMPTS):
+            sp = prefill_split(model, cfg, ZYPHRA_B, S)
+            splits.append(sp)
+            log(f"phase 19: {ZYPHRA} prefill {ZYPHRA_B} x {S} device ms "
+                f"(CUDA events, mean of {SPLIT_RUNS}): " + json.dumps(
+                    {k: round(v, 3) if isinstance(v, float) else v
+                     for k, v in sp.items()}))
+        # 19 (c): the same prefill by the plain route, then the neighbours
+        plain_split = prefill_split(model, cfg, ZYPHRA_B, MIX_PROMPTS[-1],
+                                    plain=True)
+    log(f"phase 19: {ZYPHRA} prefill {ZYPHRA_B} x {MIX_PROMPTS[-1]} by the "
+        f"plain route, device ms (CUDA events, mean of {SPLIT_RUNS}): "
+        + json.dumps({k: round(v, 3) if isinstance(v, float) else v
+                      for k, v in plain_split.items()}))
+    del model
+    torch.cuda.empty_cache()
+    near = neighbours(cfg)
+    log(f"phase 19: ssd and flash at {ZYPHRA_B} x {MIX_PROMPTS[-1]} by what "
+        f"ran just before them (median ms of 15): " + json.dumps(near))
+    per_prefill = splits[0]["launches_per_prefill"]
+    main = launches or {k: sum(sp["launches_per_prefill"][k]
+                               for sp in splits) * SPLIT_RUNS
+                        for k in per_prefill}
+    out = []
+    for name, kernel in (("mamba2_mix_in", "mix_in"),
+                         ("mamba2_mix_out", "mix_out")):
+        cases = timed[name]
+        last = cases[-1]
+        out.append(_entry(
+            name, {name: main[kernel]}, err, last["ms"], last["plain_ms"],
+            None, last["bytes"], 0,
+            f"{ZYPHRA} prefill, zxbcdt ({ZYPHRA_B}, {MIX_PROMPTS[-1]}, "
+            f"{2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state}"
+            f" + {cfg.ssm_heads}) bf16", cases=cases,
+            launches_per_prefill=per_prefill[kernel], splits=splits,
+            plain_split=plain_split, neighbours=near))
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def mamba2_mix_bench():
+    """Phase 19 alone on the card, with its builds."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba2_mix import ops as mops
+    from repro_torch.kernels.ssd import ops as sops
+    log(device_line())
+    built = build.build_all([mops.SOURCE, sops.SOURCE, fops.SOURCE,
+                             dops.SOURCE])
+    path, secs = built["mamba2_mix"]
+    log(f"phase 19: built {os.path.relpath(path, ROOT)} in {secs:.2f} s; "
+        f"registers and [spill store, spill load] bytes: " + json.dumps(
+            kernel_report(mops.SOURCE, path,
+                          keep=lambda name: "kernel" in name)))
+    err = dict.fromkeys(REPLACES, 0.0)
+    print(json.dumps({"kernels": mamba2_mix_phase(err)}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4065,6 +4538,7 @@ def main() -> int:
     from repro_torch.kernels.admission import ops as aops
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.mamba2_mix import ops as mops
     from repro_torch.kernels.ssd import ops as sops
     from repro_torch.kernels.wastage import ops
     from repro_torch.models import init_params
@@ -4081,7 +4555,7 @@ def main() -> int:
     # 2. build: every source at once, one nvcc each
     t0 = time.perf_counter()
     built = build.build_all([ops.SOURCE, sops.SOURCE, fops.SOURCE,
-                             aops.SOURCE, dops.SOURCE])
+                             aops.SOURCE, dops.SOURCE, mops.SOURCE])
     build_wall = time.perf_counter() - t0
     path, secs = built["wastage"]
     log(f"phase 2: built {os.path.relpath(path, ROOT)} in {secs:.2f} s; "
@@ -4162,8 +4636,9 @@ def main() -> int:
     # 7. the LM kernels, built beside the wastage kernels in phase 2
     log("phase 7: built " + ", ".join(
         f"{os.path.relpath(built[n][0], ROOT)} in {built[n][1]:.2f} s"
-        for n in ("ssd", "flash_attention", "decode_attention")) +
-        f" (all five sources in parallel: {build_wall:.2f} s wall)")
+        for n in ("ssd", "flash_attention", "decode_attention",
+                  "mamba2_mix")) +
+        f" (all six sources in parallel: {build_wall:.2f} s wall)")
     for name, src in (("ssd", sops.SOURCE), ("flash_attention", fops.SOURCE)):
         log(f"phase 7: {name} bf16 kernels (registers, [spill store, spill "
             f"load] bytes, HGMMA instructions): " + json.dumps(
@@ -4171,6 +4646,10 @@ def main() -> int:
     log("phase 7: decode_attention kernels (registers, [spill store, spill "
         "load] bytes): " + json.dumps(kernel_report(
             dops.SOURCE, built["decode_attention"][0],
+            keep=lambda name: "kernel" in name)))
+    log("phase 7: mamba2_mix kernels (registers, [spill store, spill "
+        "load] bytes): " + json.dumps(kernel_report(
+            mops.SOURCE, built["mamba2_mix"][0],
             keep=lambda name: "kernel" in name)))
 
     # 8. LM kernel parity on the tests' sweeps, f32 and bf16
@@ -4191,7 +4670,7 @@ def main() -> int:
     log(f"phase 9: {ARCH} init_params on the card: {n_params} parameters "
         f"in {time.perf_counter() - t0:.2f} s")
     serve(model, cfg, ((1, 256),), 2, seed=99)  # warm-up, not counted
-    for o in (ops, sops, fops, dops):
+    for o in (ops, sops, fops, dops, mops):
         o.reset_launches()
     rec_ssd, rec_flash = lm_recorders()
     with rec_ssd, rec_flash:
@@ -4199,6 +4678,7 @@ def main() -> int:
     lm_launches = {"ssd": sops.LAUNCHES["ssd"],
                    "flash_attention": fops.LAUNCHES["flash_attention"],
                    "decode_attention": dops.LAUNCHES["decode_attention"]}
+    mix_launches = dict(mops.LAUNCHES)
     want = {"ssd": cfg.n_layers,
             "flash_attention": cfg.n_layers // cfg.shared_attn_every}
     for r in records:
@@ -4214,6 +4694,7 @@ def main() -> int:
         if any(r["decode_launches"].values()):
             raise AssertionError("decode launched a prefill kernel")
         check_decode_launches(r, want["flash_attention"], ARCH)
+        check_mix_launches(r, cfg.n_layers, ARCH)
         if not r["finite"]:
             raise AssertionError("non-finite logits")
     if min(lm_launches.values()) <= 0:
@@ -4340,6 +4821,9 @@ def main() -> int:
 
     # 18. Zamba2-2.7B in Zyphra's form: launches, hd-160 kernels
     zyphra_phase(kernels, err)
+
+    # 19. the Mamba2 mix kernels: parity, timings, a prefill's split
+    kernels += mamba2_mix_phase(err, mix_launches)
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -65,6 +65,7 @@ from repro_torch.configs import ARCHS, get_config
 from repro_torch.kernels import dryrun as kernel_dryrun
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.mamba2_mix import ops as mix_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.partitioning import (default_rules, mesh_context,
@@ -121,6 +122,16 @@ def _kernel_io(func, args) -> Optional[int]:
         return ssd_ops.io_bytes(B, S, H, P, Bm.shape[2], Bm.shape[3],
                                 X.element_size(),
                                 backward=pkt is torch.ops.repro_torch.ssd_bwd)
+    if pkt is torch.ops.repro_torch.mamba2_mix_in:
+        zx, dt_bias, d_inner, groups, state = (args[0], args[3], *args[5:8])
+        B, S, _ = zx.shape
+        return mix_ops.io_bytes(B, S, d_inner, dt_bias.shape[0], groups,
+                                state, "mix_in", zx.element_size())
+    if pkt is torch.ops.repro_torch.mamba2_mix_out:
+        Y = args[0]
+        B, S, H, P = Y.shape
+        return mix_ops.io_bytes(B, S, H * P, H, 1, 1, "mix_out",
+                                Y.element_size())
     return None
 
 

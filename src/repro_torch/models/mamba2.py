@@ -3,7 +3,12 @@
 Counterpart of the reference's ``models/mamba2.py``.  Prefill's chunked
 scan is :func:`repro_torch.kernels.ssd.ops.ssd`, the counterpart of the
 reference's ``ssd_chunked``: the hand-written kernel on CUDA, its plain
-float32 version on the CPU.  There is no ``ssd_impl`` switch.  The one-token
+float32 version on the CPU.  There is no ``ssd_impl`` switch.  The
+prefill's elementwise work on either side of the scan goes through
+:func:`repro_torch.kernels.mamba2_mix.ops.mixer`: on CUDA two hand-written
+kernels (``mix_in``: conv, SiLU, softplus, the scan's inputs; ``mix_out``:
+``Y + D x``, the gate, the RMSNorm), on the CPU the plain version, which
+calls :func:`causal_conv1d` and :func:`split_zxbcdt` below.  The one-token
 decode (``ssd_decode_step``, ``conv_decode_step``) is plain PyTorch: the
 reference has no kernel for it.  ``p`` is the ``mamba`` module of a
 ``repro_torch.models.blocks.Mamba2Block``.  On DTensors (a mesh) the causal
@@ -17,6 +22,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
+from repro_torch.kernels.mamba2_mix import ops as mix_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.launch.partitioning import gathered
 from repro_torch.models.layers import rmsnorm
@@ -90,7 +96,8 @@ def conv_decode_step(conv_state: torch.Tensor, x_new: torch.Tensor,
     return y, full[:, 1:, :]
 
 
-def _split_zxbcdt(zxbcdt, d_inner, conv_dim):
+def split_zxbcdt(zxbcdt, d_inner, conv_dim):
+    """``(z, xBC, dt_raw)``: views of the in-projection's output."""
     return (zxbcdt[..., :d_inner], zxbcdt[..., d_inner:d_inner + conv_dim],
             zxbcdt[..., d_inner + conv_dim:])
 
@@ -101,33 +108,19 @@ def mamba2_mixer(p, cfg, u: torch.Tensor):
     Returns ``(out, final_ssm_state, conv_tail)``; ``conv_tail`` is the last
     KW-1 pre-conv inputs, the conv state that decoding continues from.
     """
-    B_, S, _ = u.shape
-    din, H, P = cfg.d_inner, cfg.ssm_heads, cfg.ssm_headdim
-    G, N = cfg.ssm_groups, cfg.ssm_state
+    S = u.shape[1]
+    din, G, N = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state
     dtype = u.dtype
 
     zxbcdt = u @ gathered(p.in_proj, dtype)
-    z, xBC, dt_raw = _split_zxbcdt(zxbcdt, din, din + 2 * G * N)
+    _, xBC, _ = split_zxbcdt(zxbcdt, din, din + 2 * G * N)
     kw = p.conv_w.shape[1]
     # a copy, not a view: a view would keep the whole (B, S, zdim)
     # projection of every layer alive in the cache
     conv_tail = xBC[:, -(kw - 1):, :].clone() if S >= kw - 1 else F.pad(
         xBC, (0, 0, kw - 1 - S, 0))
-    xBC = F.silu(causal_conv1d(xBC, p.conv_w, p.conv_b))
-    x = xBC[..., :din].reshape(B_, S, H, P)
-    Bm = xBC[..., din:din + G * N].reshape(B_, S, G, N).contiguous()
-    Cm = xBC[..., din + G * N:].reshape(B_, S, G, N).contiguous()
-
-    dt = F.softplus(dt_raw.float() + p.dt_bias.float())  # (B,S,H)
-    A = -torch.exp(p.A_log.float())                       # (H,)
-
-    # cast to the compute dtype before the scan, as the reference does
-    X = (x.float() * dt[..., None]).to(dtype)
-    Adt = (dt * A[None, None, :]).to(dtype)
-    Y, final = ssd_ops.ssd(X, Adt, Bm, Cm, cfg.ssm_chunk)
-    Y = Y + p.D.to(dtype)[None, None, :, None] * x
-    y = Y.reshape(B_, S, din)
-    y = rmsnorm(y * F.silu(z), p.norm_scale, cfg.norm_eps)
+    y, final = mix_ops.mixer(
+        zxbcdt, p, cfg, lambda *scan_in: ssd_ops.ssd(*scan_in, cfg.ssm_chunk))
     return y @ gathered(p.out_proj, dtype), final, conv_tail
 
 
@@ -143,7 +136,7 @@ def mamba2_decode(p, cfg, u: torch.Tensor, conv_state: torch.Tensor,
     dtype = u.dtype
 
     zxbcdt = u[:, 0] @ gathered(p.in_proj, dtype)
-    z, xBC, dt_raw = _split_zxbcdt(zxbcdt, din, din + 2 * G * N)
+    z, xBC, dt_raw = split_zxbcdt(zxbcdt, din, din + 2 * G * N)
     xBC, new_conv = conv_decode_step(conv_state, xBC, p.conv_w, p.conv_b)
     xBC = F.silu(xBC)
     x = xBC[..., :din].reshape(B_, H, P)
