@@ -16,8 +16,8 @@ greedy drain), written as eager float64 tensor operations:
   the placed lanes' admission-time scatter.
 
 The wrappers in :mod:`repro_torch.kernels.admission.ops` call these for
-tensors on the CPU; ``chip_smoke.py`` holds the kernels of
-``csrc/admission.cu`` against them on the card.  The kernels sum each
+tensors on the CPU; ``tests/test_torch_admission_card.py`` holds the
+kernels of ``csrc/admission.cu`` against them on the card.  The kernels sum each
 node's residents in order ``r = 0 … R-1`` from 0.0; these sum through
 ``.sum(dim=1)``, whose order is the device's, so a residual may differ in
 its last ulp (the precision contract of

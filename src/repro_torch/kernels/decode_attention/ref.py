@@ -10,10 +10,9 @@ the per-device score pass of a sequence-sharded cache
 (``models.attention._sharded_decode``).  :func:`write` is the one write
 of a token's rows into a cache or a device's shard of it
 (``models.attention.append_kv`` and ``update_positions``); the kernel
-takes on its whole-cache case for K and V.  :func:`case` and
-:data:`CHECKED` are the seeded inputs and shapes on which the kernel is
-held to this version on the card (the ``cuda`` tests and
-``chip_smoke.py``).
+takes on its whole-cache case for K and V.  :func:`case` draws the seeded
+inputs on which ``tests/test_torch_lm_kernels_card.py`` holds the kernel
+to this version on the card.
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["NEG_INF", "CHECKED", "default_scale", "decode_attention",
+__all__ = ["NEG_INF", "default_scale", "decode_attention",
            "scores", "write", "case"]
 
 NEG_INF = -1e30
@@ -82,21 +81,6 @@ def write(cap: int, offset: int, caches, news, pos) -> None:
     for c, t in zip(caches, news):
         keep = mine.reshape((-1,) + (1,) * (t.dim() - 1))
         c[b_idx, slot] = torch.where(keep, t.to(c.dtype), c[b_idx, slot])
-
-
-# (B, cap, H, K, hd, kind, window) of the kernel's checks on the card
-CHECKED = (
-    (32, 1792, 16, 16, 128, "fill", None),   # the decode cell's caps
-    (32, 960, 16, 16, 128, "fill", None),
-    (8, 781, 16, 16, 128, "fill", None),     # the prefill cell's
-    (8, 3853, 16, 16, 128, "full", None),
-    (2, 1000, 64, 8, 128, "fill", None),     # G = 8 (qwen2-vl, llama3)
-    (2, 1000, 48, 8, 128, "fill", None),     # G = 6 (dbrx)
-    (1, 600, 96, 8, 128, "fill", None),      # G = 12: two head groups
-    (3, 700, 16, 4, 128, "ring", 300),       # a ring cache, wrapped
-    (1, 333, 32, 32, 80, "fill", None),      # cap off the tile; hd 80
-    (4, 517, 32, 8, 160, "none", None),      # no valid slot; 320 B bf16 rows
-)
 
 
 def case(seed, B, cap, H, K, hd, kind="fill", dtype=torch.float32,

@@ -9,8 +9,8 @@ in-projection's output to the scan's inputs: causal conv, SiLU, softplus,
 (from the scan's output to the out-projection's input: ``Y + D x``, the
 gate, the float32 RMSNorm).  Used for CPU tensors (a CPU mesh's DTensors
 among them), as the kernels' backward (recomputed and differentiated) and
-as their oracle on the card.  :func:`case` draws the seeded inputs that the
-tests and ``chip_smoke.py`` check the kernels on.
+as their oracle on the card.  :func:`case` draws the seeded inputs that
+``tests/test_torch_mamba2_mix.py`` checks the kernels on.
 """
 
 from __future__ import annotations

@@ -16,8 +16,9 @@ runs it (``repro/core/fleet.py``), in float32 on the same grid, with the
 retry rules of ``core.retry`` as tensor plan rewrites.
 
 The wrappers in :mod:`repro_torch.kernels.wastage.ops` call these for a
-tensor on the CPU; ``chip_smoke.py`` holds the kernel against them on the
-card.
+tensor on the CPU; ``tests/test_torch_kernels_card.py`` and
+``tests/test_torch_fleet_engine_card.py`` hold the kernels against them on
+the card.
 """
 
 from __future__ import annotations

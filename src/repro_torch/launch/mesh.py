@@ -41,7 +41,7 @@ class HW:
     PEAK_FLOPS_BF16 = 989e12   # per card
     HBM_BW = 3.35e12           # bytes/s per card (HBM3)
     # torch.cuda.get_device_properties(0).total_memory on an
-    # NVIDIA H100 80GB HBM3 (chip_smoke.py phase 16 prints it)
+    # NVIDIA H100 80GB HBM3 (chip_smoke.py phase 15 prints it)
     HBM_BYTES = 85_017_493_504
     CARDS_PER_NODE = 8
     NVLINK_BW = 450e9          # bytes/s per card and direction (NVLink 4)

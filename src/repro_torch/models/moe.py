@@ -51,8 +51,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
-from repro_torch.launch.partitioning import (count_casts,
-                                             current_batch_axes,
+from repro_torch.launch.partitioning import (current_batch_axes,
                                              current_batch_shards,
                                              gathered, logical_constraint,
                                              shard_index)
@@ -97,11 +96,9 @@ def route(xs: torch.Tensor, router_w: torch.Tensor, topk: int,
     """
     s, Tl, _ = xs.shape
     E = router_w.shape[1]
-    if _obs.enabled:
-        count_casts(xs.dtype, router_w)
     # bf16 operands, float32 accumulation: the products of two bf16 values
     # are exact in float32
-    logits = xs.float() @ router_w.to(xs.dtype).float()
+    logits = xs.float() @ gathered(router_w, xs.dtype).float()
     probs = torch.softmax(logits, dim=-1)
     gate, expert_idx = torch.topk(probs, topk, dim=-1)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
@@ -194,13 +191,11 @@ def _experts(buf, w_gate, w_up, w_down):
     its dtype: ``out`` (s, E, C, d)."""
     n_shards, E, C, d = buf.shape
     dtype = buf.dtype
-    if _obs.enabled:
-        count_casts(dtype, w_gate, w_up, w_down)
     # (E, s·C, d): one batch of rows per expert
     buf = buf.transpose(0, 1).reshape(E, n_shards * C, d)
-    g = torch.bmm(buf, w_gate.to(dtype))
-    u = torch.bmm(buf, w_up.to(dtype))
-    out = torch.bmm(F.silu(g) * u, w_down.to(dtype))        # (E, s·C, d)
+    g = torch.bmm(buf, gathered(w_gate, dtype))
+    u = torch.bmm(buf, gathered(w_up, dtype))
+    out = torch.bmm(F.silu(g) * u, gathered(w_down, dtype))  # (E, s·C, d)
     return out.reshape(E, n_shards, C, d).transpose(0, 1)
 
 

@@ -18,9 +18,8 @@ chooser, the conflict cut where a lane fits a node an earlier lane chose,
 slots from a prefix sum.  It is a test helper only, held to the plain
 version, also past 64 nodes.
 
-The ``cuda``-marked tests hold the kernels to the plain versions on the
-same CUDA tensors, and count one ``admit_drain`` launch and one host read
-per drain through ``AdmissionState`` on the card.
+``tests/test_torch_admission_card.py`` holds the kernels to the plain
+versions on the same CUDA tensors on the card.
 """
 
 import numpy as np
@@ -29,57 +28,16 @@ import torch
 
 from repro.core.envelope import fits_column
 from repro.sched.admission import AdmissionState as RAdmission
-from repro_torch.analysis.contracts import dispatch_budget
 from repro_torch.kernels.admission import ops, ref
 from repro_torch.sched import AdmissionState
 
-from test_torch_sched import _lanes
-
-K, G, TOL, NOW = 3, 16, 1e-9, 50.0
-SWEEP = [(select, use_dur, N, Q)
-         for select in ("first", "headroom") for use_dur in (True, False)
-         for N in (1, 3, 4, 9) for Q in (1, 17, 256, 257)]
-
-
-def _case(seed, N, Q, use_dur, residents=(0, 4), caps=None):
-    """Lanes (residents first per node, then the queue, then two spare
-    lanes), residents admitted before ``NOW`` and the queue in a random
-    order."""
-    rng = np.random.default_rng(seed)
-    per = rng.integers(residents[0], residents[1], N)
-    B = int(per.sum()) + Q + 2
-    starts, peaks, need, grid, dur = _lanes(rng, B, K, G, use_dur)
-    order = rng.permutation(B)
-    cut = np.cumsum(per)
-    running = [order[a:b].tolist()
-               for a, b in zip(np.concatenate([[0], cut[:-1]]), cut)]
-    queue = order[cut[-1]:cut[-1] + Q]
-    t0 = np.zeros(B)
-    t0[order[:cut[-1]]] = NOW - rng.uniform(0.0, 80.0, cut[-1])
-    caps = rng.uniform(20.0, 80.0, N) if caps is None \
-        else np.asarray(caps, np.float64)
-    return dict(starts=starts, peaks=peaks, need=need, grid=grid, dur=dur,
-                caps=caps, running=running, queue=queue, t0=t0)
-
-
-def _operands(c, device="cpu"):
-    """The kernels' operands, as ``AdmissionState`` builds them."""
-    B = c["starts"].shape[0]
-    N = len(c["running"])
-    R = max(max(len(r) for r in c["running"]), 1)
-    run_idx = np.zeros((N, R), np.int64)
-    run_valid = np.zeros((N, R), np.int64)
-    for i, run in enumerate(c["running"]):
-        run_idx[i, :len(run)] = run
-        run_valid[i, :len(run)] = 1
-    dur = np.full(B, np.inf) if c["dur"] is None else c["dur"]
-    t = lambda a: torch.from_numpy(  # noqa: E731
-        np.ascontiguousarray(a)).to(device)
-    return (t(c["starts"]), t(c["peaks"]), t(np.append(c["t0"], 0.0)),
-            t(dur), t(c["need"]), t(c["grid"]), t(c["caps"]), t(run_idx),
-            t(run_valid), t(np.asarray(c["queue"], np.int64)),
-            *(torch.tensor(x, dtype=torch.float64, device=device)
-              for x in (NOW, TOL)))
+from torch_cases import DRAIN_G as G
+from torch_cases import DRAIN_K as K
+from torch_cases import DRAIN_NOW as NOW
+from torch_cases import DRAIN_SWEEP as SWEEP
+from torch_cases import DRAIN_TOL as TOL
+from torch_cases import SPECIAL, _lanes, _operands, _special
+from torch_cases import _drain_case as _case
 
 
 def _reference(c, use_dur, select):
@@ -111,30 +69,6 @@ def _held_columns(c, use_dur, got):
         np.testing.assert_array_equal(got[0, n] != 0, ok)
         np.testing.assert_allclose(got[1, n], resid.min(axis=-1),
                                    rtol=1e-12, atol=0)
-
-
-def _special(kind, use_dur):
-    """No residents anywhere; a lane that fits nowhere; ties (equal empty
-    nodes); grazing fits inside the tol band."""
-    if kind == "no-residents":
-        return _case(11, 4, 17, use_dur, residents=(0, 1))
-    if kind == "fits-nowhere":
-        c = _case(12, 3, 17, use_dur)
-        c["need"][c["queue"][[0, 5]]] += 1e3
-        return c
-    if kind == "ties":
-        return _case(13, 3, 17, use_dur, residents=(0, 1),
-                     caps=(40.0, 40.0, 40.0))
-    c = _case(14, 2, 4, use_dur, residents=(0, 1), caps=(30.0, 30.0))
-    q = c["queue"]
-    c["need"][q[0]] = 30.0 + 0.5 * TOL   # fits node 0 only in the band
-    c["need"][q[1]] = 30.0 + 0.5 * TOL   # then node 1
-    c["need"][q[2]] = 30.0 + 2.0 * TOL   # fits nowhere
-    c["need"][q[3]] = 1.0
-    return c
-
-
-SPECIAL = ["no-residents", "fits-nowhere", "ties", "grazing"]
 
 
 # ----------------------------------------------- plain versions vs reference
@@ -344,145 +278,3 @@ def test_book_decodes_the_kernel_vector():
     for ni in (0, 2):
         np.testing.assert_array_equal(adm.valid[ni], ~fits_before[ni])
 
-
-# ----------------------------------------------------------------- the card
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-
-
-@pytest.mark.cuda
-class TestOnCard:
-    @pytest.mark.parametrize("select,use_dur", [
-        (s, u) for s in ("first", "headroom") for u in (True, False)])
-    def test_kernels_match_plain(self, select, use_dur):
-        _card()
-        cases = [_case(N * 1000 + Q, N, Q, use_dur)
-                 for _, u, N, Q in SWEEP if u == use_dur]
-        cases += [_special(k, use_dur) for k in SPECIAL]
-        # past one 64-bit word of nodes
-        cases += [_case(21, 65, 256, use_dur), _case(22, 130, 257, use_dur)]
-        for c in cases:
-            kern, plain = _operands(c, "cuda"), _operands(c, "cuda")
-            vec, reads = ops.admit_drain(*kern, use_dur, select)
-            assert reads == 1
-            want = ref.plain_drain(*plain, use_dur, select)
-            torch.cuda.synchronize()
-            assert torch.equal(vec, want)
-            assert torch.equal(kern[2], plain[2])
-            got = ops.admit_columns(*kern, use_dur)
-            want = ref.plain_columns(*plain, use_dur)
-            assert torch.equal(got[0], want[0])
-            torch.testing.assert_close(got[1], want[1], rtol=1e-12, atol=0)
-
-    def test_one_launch_and_one_host_read_per_drain(self):
-        """``TestOneProgramPerDrain`` on the card: each drain is one
-        ``admit_drain`` launch and one host read, with no build or load
-        after the first; a backlog past ``DRAIN_CAP`` adds one
-        ``admit_columns`` launch and read per pre-filter refresh."""
-        _card()
-        rng = np.random.default_rng(8)
-        lanes = _lanes(rng, 300, K, G, True)
-        states = [AdmissionState((40.0, 20.0, 36.0, 64.0), K=K, G=G,
-                                 device=d) for d in ("cuda", "cpu")]
-        for adm in states:
-            adm.add_lanes(*lanes)
-        card, cpu = states
-        assert card.drain(0.0, [0, 1]) == cpu.drain(0.0, [0, 1])  # warm-up
-        steps = ((3.0, range(2, 14)), (7.0, range(14, 300)),
-                 (40.0, range(2, 40)))
-        want = [cpu.drain(now, list(queue)) for now, queue in steps]
-        before = dict(ops.LAUNCHES)
-        stats0 = dict(card.stats)
-        with dispatch_budget(compiles=0) as b:   # the card's drains alone
-            got = [card.drain(now, list(queue)) for now, queue in steps]
-        assert got == want
-        st = {k: card.stats[k] - stats0[k] for k in card.stats}
-        drains = ops.LAUNCHES["admit_drain"] - before["admit_drain"]
-        refreshes = ops.LAUNCHES["admit_columns"] - before["admit_columns"]
-        assert drains == st["drain_dispatches"] \
-            == b.tag_counts["admission.drain"] >= 3
-        assert refreshes == b.tag_counts["admission.columns"] >= 1
-        assert st["host_reads"] == drains + refreshes
-        assert st["drain_iterations"] > drains
-        np.testing.assert_array_equal(card.admit_t, cpu.admit_t)
-        assert torch.equal(card._dadmit[:card.B].cpu(),
-                           torch.from_numpy(card.admit_t))
-
-    @pytest.mark.parametrize("select", ["first", "headroom"])
-    def test_wide_cluster_drains_through_the_kernel(self, select):
-        """65 and 130 nodes through ``AdmissionState`` on the card: each
-        drain one ``admit_drain`` launch and one host read, placements and
-        admission times equal to the CPU state's."""
-        _card()
-        rng = np.random.default_rng(9)
-        for N in (65, 130):
-            caps = rng.uniform(10.0, 40.0, N)
-            lanes = _lanes(rng, 600, K, G, True)
-            card, cpu = (AdmissionState(caps, K=K, G=G, device=d)
-                         for d in ("cuda", "cpu"))
-            for adm in (card, cpu):
-                adm.add_lanes(*lanes)
-            before = dict(ops.LAUNCHES)
-            queue = list(range(600))
-            for now in (0.0, 5.0, 30.0):
-                got = card.drain(now, queue[:200], select)
-                assert got == cpu.drain(now, queue[:200], select) and got
-                placed = {lane for lane, _ in got}
-                queue = [q for q in queue if q not in placed]
-            assert ops.LAUNCHES["admit_drain"] - before["admit_drain"] \
-                == card.stats["drain_dispatches"] == 3
-            assert card.stats["host_reads"] == 3
-            np.testing.assert_array_equal(card.admit_t, cpu.admit_t)
-
-    def test_elastic_planner_drains_through_the_kernel(self):
-        """The elastic planner (``use_dur=False``, head-room rule) on the
-        card: joins, submissions, drains, finishes and a leave decide as
-        on the CPU, one ``admit_drain`` launch a drain program."""
-        _card()
-        from repro_torch.core import AllocationPlan
-        from repro_torch.sched import ElasticPlanner
-        planners = [ElasticPlanner(backend="fused", device=d)
-                    for d in ("cuda", "cpu")]
-        before = dict(ops.LAUNCHES)
-        rng = np.random.default_rng(4)
-        events = []
-        for step in range(300):
-            k = int(rng.integers(1, 4))
-            peak = float(rng.uniform(4.0, 30.0))
-            plan = dict(starts=np.sort(np.concatenate(
-                [[0.0], rng.uniform(5.0, 200.0, k - 1)])),
-                peaks=np.sort(rng.uniform(peak / 2, peak, k)))
-            events.append(("submit", f"j{step}", plan, float(step)))
-            if step % 40 == 0:
-                events.append(("join", f"n{step}", 48.0 + step / 10,
-                               float(step)))
-            if step % 25 == 24:
-                events.append(("finish", f"j{step - 20}", None, None))
-                events.append(("drain", None, None, float(step)))
-        events.append(("leave", "n40", None, 300.0))
-        events.append(("drain", None, None, 301.0))
-        out = []
-        for pl in planners:
-            log_ = []
-            for kind, name, arg, now in events:
-                if kind == "submit":
-                    log_.append(pl.submit(name, AllocationPlan(**arg), now))
-                elif kind == "join":
-                    log_.append(sorted(pl.node_join(name, arg, now=now)
-                                       .items()))
-                elif kind == "finish":
-                    if any(j == name for sl in pl.slices.values()
-                           for j, _, _ in sl.jobs):
-                        pl.finish(name)
-                elif kind == "drain":
-                    log_.append(sorted(pl.drain(now).items()))
-                else:
-                    log_.append(pl.node_leave(name, now=now))
-            out.append(log_)
-        assert out[0] == out[1]
-        st = planners[0]._adm.stats
-        drains = ops.LAUNCHES["admit_drain"] - before["admit_drain"]
-        refreshes = ops.LAUNCHES["admit_columns"] - before["admit_columns"]
-        assert drains == st["drain_dispatches"] > 0
-        assert st["host_reads"] == drains + refreshes

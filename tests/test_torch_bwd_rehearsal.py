@@ -21,8 +21,9 @@ Each is held against the plain backward (``ref``) on the same bf16 inputs and
 against ``jax.vjp`` of the reference's XLA forms
 (``repro.models.attention.chunked_gqa_attention``,
 ``repro.models.mamba2.ssd_chunked``) on their float32 values, within 2e-2 of
-each element plus 2e-2 of the tensor's largest (the bf16 tolerance of
-``chip_smoke.py`` phase 14); unrounded, the SSD emulation is the plain
+each element plus 2e-2 of the tensor's largest (the bf16 tolerance that
+``test_backward_kernels_match_plain`` in ``tests/test_torch_lm_kernels_card.py``
+holds the kernels to on the card); unrounded, the SSD emulation is the plain
 backward to 1e-4 at any chunk.
 """
 

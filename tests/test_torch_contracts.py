@@ -43,7 +43,8 @@ from repro_torch.kernels import build
 from repro_torch.sched import (AdmissionState, ClusterSim, ElasticPlanner,
                                FaultSchedule, Job, Node)
 
-from test_torch_sched import _lanes, _multiseg
+from test_torch_sched import _multiseg
+from torch_cases import _lanes
 
 CPU = "cpu"
 

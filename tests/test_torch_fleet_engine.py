@@ -14,8 +14,9 @@ and the engines' trace sums are reduced in different orders).  The probe
 emulation covers the one-hot select that lanes whose starts decrease take,
 against the Pallas kernel in interpret mode.
 
-The ``cuda``-marked tests hold the kernel itself against the plain engine
-and the grouped probes against one-group calls, on the card.
+``tests/test_torch_fleet_engine_card.py`` holds the kernel itself against
+the plain engine and the grouped probes against one-group calls, on the
+card.
 """
 
 import dataclasses
@@ -30,11 +31,10 @@ from repro.kernels.wastage.ops import oom_probe as oom_probe_pallas
 from repro_torch.core import RetrySpec
 from repro_torch.kernels.wastage import ops, ref
 
-F = np.float32
+from torch_cases import ENGINE_KINDS as KINDS
+from torch_cases import WTOL, F, _edge, _groups, _plans, _traces
+
 INT_MAX = np.iinfo(np.int32).max
-WTOL = dict(rtol=1e-4)
-KINDS = ["ksplus", "kseg-selective", "kseg-partial", "double", "max-machine",
-         "none"]
 
 
 # ------------------------------------------------------------ the emulation
@@ -200,50 +200,6 @@ def probe_lane(st, pk, mem, n, dt):
 
 
 # ------------------------------------------------------------------- inputs
-def _traces(seed, n=40, max_len=300):
-    rng = np.random.default_rng(seed)
-    mems = []
-    for _ in range(n):
-        L = int(rng.integers(1, max_len))
-        m = np.full(L, rng.uniform(0.5, 4.0))
-        m[int(rng.integers(0, L)):] += rng.uniform(0.0, 6.0)
-        mems.append(np.abs(m + rng.normal(0, 0.05, L)))
-    return mems
-
-
-def _plans(seed, mems, K=4, nonmono=False):
-    rng = np.random.default_rng(seed + 1)
-    B = len(mems)
-    starts = np.sort(rng.uniform(0, 1, (B, K)), axis=1) \
-        * np.asarray([max(len(m), 1) for m in mems])[:, None]
-    starts[:, 0] = 0.0
-    peaks = rng.uniform(0.3, 1.2, (B, K)) \
-        * np.asarray([m.max() if len(m) else 1.0 for m in mems])[:, None]
-    if not nonmono:
-        peaks = np.sort(peaks, axis=1)
-    nseg = rng.integers(1, K + 1, B).astype(np.int32)
-    real = np.arange(K)[None, :] < nseg[:, None]
-    last = np.take_along_axis(peaks, (nseg - 1)[:, None], axis=1)
-    starts = np.where(real, starts, f_pt.PAD_START)
-    peaks = np.where(real, peaks, last)
-    return starts.astype(np.float32), peaks.astype(np.float32), nseg
-
-
-def _edge(dt, n=24):
-    """Second starts on the grid i * dt or one ulp either side, over
-    traces that step up at sample i: fit or kill hangs on the exact bound."""
-    mems, starts = [], []
-    for i in range(n):
-        n0 = 5 + 7 * i
-        mems.append(np.concatenate([np.full(n0, 1.0), np.full(40, 3.0)]))
-        s = F(n0) * F(dt)
-        s = (s, np.nextafter(s, F(0)), np.nextafter(s, F(np.inf)))[i % 3]
-        starts.append([0.0, s])
-    starts = np.asarray(starts, np.float32)
-    return mems, (starts, np.tile(F([2.0, 4.0]), (n, 1)),
-                  np.full(n, 2, np.int32))
-
-
 def _check_all(jobs, mems, dt=1.0, machine_memory=12.0, max_attempts=25):
     """Emulation, port engine (CPU) and reference engine agree."""
     kw = dict(dt=dt, machine_memory=machine_memory, max_attempts=max_attempts)
@@ -366,24 +322,6 @@ class TestEmulatedProbe:
                                       stop=False)]
             want = [onehot(st, pk, F(F(i) * F(dt))) for i in range(40)]
             assert got == want
-
-
-def _groups(seed=31):
-    rng = np.random.default_rng(seed)
-    out = []
-    for B, K, T in [(5, 4, 128), (3, 1, 96), (7, 8, 701)]:
-        mems = torch.from_numpy(np.abs(rng.normal(3, 1, (B + 2, T))).astype(F))
-        lengths = torch.from_numpy(rng.integers(0, T, B + 2).astype(np.int32))
-        starts = np.sort(rng.uniform(0, T, (B, K)), axis=1).astype(F)
-        starts[:, 0] = 0
-        peaks = np.sort(rng.uniform(1, 6, (B, K)), axis=1).astype(F)
-        out.append(ops.Group(starts, peaks, mems, lengths,
-                             nseg=np.full(B, K, np.int32),
-                             summem=torch.zeros(B + 2),
-                             bump_lanes=rng.uniform(0, 1, B).astype(F)
-                             if K == 8 else None,
-                             kind="ksplus", margin=0.1, bump=0.2))
-    return out
 
 
 class TestGroupTable:
@@ -513,59 +451,3 @@ class TestGroupTable:
             np.testing.assert_array_equal(
                 res[j].wastage_gbs[idx], out[0][lo:hi].view(F))
 
-
-def _sweep():
-    cases = []
-    for kind in KINDS:
-        mems = _traces(41)
-        cases.append(([(_plans(41, mems, nonmono=kind.startswith("kseg")),
-                        RetrySpec(kind))], mems, 1.0, 12.0, 25))
-    mems = _traces(42)
-    bump = np.random.default_rng(42).uniform(0.05, 0.6, len(mems))
-    bump[::5] = np.nan
-    cases.append(([(_plans(42, mems), RetrySpec("ksplus"), bump)], mems, 1.0,
-                  16.0, 25))
-    mems = _traces(43)
-    mems[0], mems[3] = np.full(20, 50.0), np.zeros(0)
-    cases.append(([(_plans(43, mems, K=32), RetrySpec("double")),
-                   (_plans(44, mems, K=1), RetrySpec("kseg-partial"))],
-                  mems, 1.0, 16.0, 6))
-    for dt in (0.5, 1.0, 2.5):
-        mems, plans = _edge(dt)
-        cases.append(([(plans, RetrySpec("ksplus"))], mems, dt, 16.0, 25))
-    return cases
-
-
-@pytest.mark.cuda
-class TestOnCard:
-    def test_fleet_engine_matches_plain_engine(self):
-        if not torch.cuda.is_available():
-            pytest.skip("the CUDA kernel has no CPU mode; needs a CUDA card")
-        for jobs, mems, dt, mm, n in _sweep():
-            table, _ = f_pt._engine_table(
-                jobs, f_pt.bucket_traces(mems, device="cuda"))
-            before = ops.LAUNCHES["fleet_engine"]
-            got = ops.fleet_engine(table, mm, dt, n).cpu().numpy()
-            assert ops.LAUNCHES["fleet_engine"] == before + 1
-            want = ref.plain_engine(table, mm, dt, n).numpy()
-            np.testing.assert_array_equal(got[1:], want[1:])
-            np.testing.assert_allclose(got[0].view(F), want[0].view(F),
-                                       **WTOL)
-
-    def test_grouped_probe_matches_one_group_calls(self):
-        if not torch.cuda.is_available():
-            pytest.skip("the CUDA kernel has no CPU mode; needs a CUDA card")
-        groups = [ops.Group(torch.from_numpy(g.starts).cuda(),
-                            torch.from_numpy(g.peaks).cuda(), g.mems.cuda(),
-                            g.lengths.cuda()) for g in _groups(51)]
-        table = ops.GroupTable(groups, "cuda")
-        before = ops.LAUNCHES["oom_probe"]
-        viol, ws, wk = ops.oom_probe_groups(table, 1.0)
-        assert ops.LAUNCHES["oom_probe"] == before + 1
-        for g, lo in zip(groups, table.lane0):
-            args = (g.starts, g.peaks, g.mems[:g.B].contiguous(),
-                    g.lengths[:g.B].contiguous())
-            v, s, k = ops.oom_probe(*args)
-            assert torch.equal(viol[lo:lo + g.B], v)
-            torch.testing.assert_close(ws[lo:lo + g.B], s, rtol=0, atol=0)
-            torch.testing.assert_close(wk[lo:lo + g.B], k, rtol=0, atol=0)

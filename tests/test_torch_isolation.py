@@ -1,6 +1,7 @@
 """The port stands alone, and never drops silently to the CPU.
 
-* No module under ``src/repro_torch/`` (nor ``chip_smoke.py``) imports
+* No module under ``src/repro_torch/`` (nor ``chip_smoke.py``, nor a test
+  file that carries the ``cuda`` mark, nor the cases those share) imports
   ``jax`` or the reference package ``repro``.
 * Entry points called without ``device`` mean the card: without CUDA they
   raise instead of running on the CPU.
@@ -49,8 +50,23 @@ from repro_torch.workloads import (
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WFC = ROOT / "tests" / "data" / "mini_wfcommons.json"
+
+
+def _marks_cuda(path):
+    """Whether the file puts ``pytest.mark.cuda`` on a test."""
+    return any(isinstance(n, ast.Attribute) and n.attr == "cuda"
+               and isinstance(n.value, ast.Attribute)
+               and n.value.attr == "mark"
+               for n in ast.walk(ast.parse(path.read_text(), str(path))))
+
+
+# the card tests run where JAX is not installed: every test file that
+# carries the ``cuda`` mark, and the cases they share
+CARD_TESTS = sorted(p for p in (ROOT / "tests").glob("test_torch_*.py")
+                    if _marks_cuda(p))
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_cases.py"] \
+    + CARD_TESTS
 
 
 def _imports(path):

@@ -7,8 +7,8 @@ mode, through the numpy oracles, and through the port.  ``viol`` must be
 exact; ``w_succ`` / ``w_kill`` within rtol 1e-4 / atol 1e-2 (the reference
 tests' tolerance: float32 sums in another order).
 
-The CUDA kernel itself has no CPU mode: the ``cuda``-marked test holds it
-against the plain version on the card and skips here.
+The CUDA kernel itself has no CPU mode: ``tests/test_torch_kernels_card.py``
+holds it against the plain version on the card.
 """
 
 import importlib.util
@@ -17,7 +17,6 @@ import shutil
 
 import numpy as np
 import pytest
-import torch
 
 from repro.core.wastage import oom_probe_ref, wastage_eval_ref
 from repro.kernels.wastage.ops import oom_probe as oom_probe_pallas
@@ -25,26 +24,9 @@ from repro.kernels.wastage.ops import wastage_eval as wastage_eval_pallas
 from repro_torch.kernels import build
 from repro_torch.kernels.wastage import ops, ref
 
-TOL = dict(rtol=1e-4, atol=1e-2)
-
-
-def _case(seed, B, T, k, dt=1.0, *, sentinel=False, monotone=True):
-    rng = np.random.default_rng(seed)
-    starts = np.sort(rng.uniform(0, T * 0.8 * dt, (B, k)), axis=1)
-    starts[:, 0] = 0
-    if sentinel:
-        starts[:, 2:] = 1e30
-    peaks = rng.uniform(1, 6, (B, k))
-    if monotone:
-        peaks = np.sort(peaks, axis=1)
-    mems = np.abs(rng.normal(3, 1.5, (B, T)))
-    lengths = rng.integers(1, T, B)
-    return (starts.astype(np.float32), peaks.astype(np.float32),
-            mems.astype(np.float32), lengths.astype(np.int32))
-
-
-def _torch(*arrs):
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrs)
+from torch_cases import PROBE_TOL as TOL
+from torch_cases import _probe_case as _case
+from torch_cases import _torch
 
 
 def _check_probe(starts, peaks, mems, lengths, dt):
@@ -142,22 +124,3 @@ class TestBuildDir:
         with pytest.raises(RuntimeError, match="source checkout"):
             mod.build_dir()
 
-
-@pytest.mark.cuda
-class TestKernelOnCard:
-    def test_kernel_matches_plain(self):
-        if not torch.cuda.is_available():
-            pytest.skip("the CUDA kernel has no CPU mode; needs a CUDA card")
-        for seed, (B, T, k, dt) in enumerate([(8, 512, 4, 1.0),
-                                              (16, 700, 8, 2.5),
-                                              (3, 64, 1, 0.5)]):
-            arrs = tuple(t.cuda() for t in _torch(*_case(seed, B, T, k, dt)))
-            before = ops.LAUNCHES["oom_probe"]
-            viol, ws, wk = ops.oom_probe(*arrs, dt=dt)
-            assert ops.LAUNCHES["oom_probe"] == before + 1
-            rv, rs, rk = ref.oom_probe(*arrs, dt)
-            assert torch.equal(viol, rv)
-            torch.testing.assert_close(ws, rs, **TOL)
-            torch.testing.assert_close(wk, rk, **TOL)
-            torch.testing.assert_close(ops.wastage_eval(*arrs, dt=dt),
-                                       ref.wastage_eval(*arrs, dt), **TOL)

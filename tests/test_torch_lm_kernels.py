@@ -24,8 +24,8 @@ plain version, held to the reference's ``decode_gqa_attention`` at the
 same tolerances; the wrapper's checks, plan, fake and FLOP rule are held
 here, the kernel on the card.
 
-The CUDA kernels have no CPU mode: the ``cuda``-marked tests hold them
-against the plain versions on the card and skip here.  What the bf16
+The CUDA kernels have no CPU mode: ``tests/test_torch_lm_kernels_card.py``
+holds them against the plain versions on the card.  What the bf16
 kernels compute is rehearsed here instead: plain torch emulations of their
 arithmetic (tiles, passes and bf16 operand roundings, ``_flash_bf16`` and
 ``_ssd_three_pass`` below, test helpers only) are held against the plain
@@ -51,13 +51,8 @@ from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 
-F32 = dict(atol=2e-5, rtol=2e-5)
-BF16 = dict(atol=2e-2, rtol=2e-2)
-SSD_TOL = dict(atol=5e-3, rtol=5e-3)
-
-
-def _t(a, dtype=torch.float32):
-    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dtype)
+from torch_cases import (BF16, F32, FLASH_SHAPES, SSD_SHAPES, SSD_TOL,
+                         _decode_case, _qkv, _ssd_inputs, _t)
 
 
 def _f32(x):
@@ -68,13 +63,6 @@ def _f32(x):
 
 
 # --------------------------------------------------------------- attention
-def _qkv(seed, B, Sq, Skv, H, K, hd):
-    rng = np.random.default_rng(seed)
-    return (rng.standard_normal((B, Sq, H, hd)).astype(np.float32),
-            rng.standard_normal((B, Skv, K, hd)).astype(np.float32),
-            rng.standard_normal((B, Skv, K, hd)).astype(np.float32))
-
-
 def _mha(q, k, v, **kw):
     mv = lambda a: jnp.moveaxis(jnp.asarray(a), 2, 1)  # noqa: E731
     return jnp.moveaxis(mha_reference(mv(q), mv(k), mv(v), **kw), 1, 2)
@@ -96,12 +84,7 @@ def _check_flash(q, k, v, *, causal=True, window=None, jdtype=jnp.float32,
 
 
 class TestFlashAttention:
-    @pytest.mark.parametrize("B,Sq,Skv,H,K,hd", [
-        (1, 128, 128, 4, 2, 64),
-        (2, 64, 192, 4, 4, 32),
-        (1, 256, 256, 8, 2, 16),
-        (2, 128, 128, 2, 1, 64),   # MQA
-    ])
+    @pytest.mark.parametrize("B,Sq,Skv,H,K,hd", FLASH_SHAPES)
     @pytest.mark.parametrize("causal", [True, False])
     def test_sweep_f32(self, B, Sq, Skv, H, K, hd, causal):
         _check_flash(*_qkv(B * Sq + H, B, Sq, Skv, H, K, hd), causal=causal)
@@ -124,9 +107,6 @@ class TestFlashAttention:
 
 
 # ------------------------------------------------------- decode attention
-_decode_case = decode_ops.ref.case  # seeded decode inputs
-
-
 class TestDecodeAttention:
     @pytest.mark.parametrize("B,cap,H,K,hd,kind,window", [
         (2, 40, 4, 4, 16, "fill", None),     # olmoe's G = 1
@@ -151,26 +131,13 @@ class TestDecodeAttention:
 
 
 # --------------------------------------------------------------------- SSD
-def _ssd_inputs(seed, B, S, H, P, G, N):
-    rng = np.random.default_rng(seed)
-    return (rng.standard_normal((B, S, H, P)) * 0.5,
-            -np.abs(rng.standard_normal((B, S, H))) * 0.3,
-            rng.standard_normal((B, S, G, N)) * 0.5,
-            rng.standard_normal((B, S, G, N)) * 0.5)
-
-
 def _port_ssd(X, A, Bm, Cm, chunk, dtype=torch.float32):
     return ssd_ops.ssd(_t(X, dtype), _t(A, dtype), _t(Bm, dtype),
                        _t(Cm, dtype), chunk)
 
 
 class TestSSD:
-    @pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
-        (1, 128, 2, 16, 1, 32, 32),
-        (2, 256, 4, 64, 2, 64, 64),
-        (1, 96, 2, 32, 1, 16, 32),    # padded sequence
-        (1, 128, 8, 16, 4, 16, 128),  # single chunk
-    ])
+    @pytest.mark.parametrize("B,S,H,P,G,N,chunk", SSD_SHAPES)
     def test_sweep(self, B, S, H, P, G, N, chunk):
         X, A, Bm, Cm = _ssd_inputs(S + H, B, S, H, P, G, N)
         y, st = _port_ssd(X, A, Bm, Cm, chunk)
@@ -495,182 +462,6 @@ class TestWrapperContract:
             ssd_ops.ssd(X, A, Bm, Cm, 0)
 
 
-# ------------------------------------------------------------- on the card
-@pytest.mark.cuda
-class TestKernelsOnCard:
-    def test_flash_kernel_matches_plain(self):
-        if not torch.cuda.is_available():
-            pytest.skip("the CUDA kernel has no CPU mode; needs a CUDA card")
-        for seed, (shape, causal, window, dtype) in enumerate([
-                ((2, 64, 192, 4, 4, 32), False, None, torch.float32),
-                ((1, 100, 100, 2, 2, 32), True, None, torch.float32),
-                ((1, 256, 256, 2, 2, 32), True, 64, torch.float32),
-                ((2, 300, 300, 32, 32, 80), True, None, torch.bfloat16),
-                ((1, 200, 200, 4, 2, 128), True, None, torch.bfloat16)]):
-            q, k, v = (_t(a, dtype).cuda() for a in _qkv(seed, *shape))
-            before = flash_ops.LAUNCHES["flash_attention"]
-            got = flash_ops.flash_attention(q, k, v, causal=causal,
-                                            window=window)
-            assert flash_ops.LAUNCHES["flash_attention"] == before + 1
-            want = flash_ops.ref.flash_attention(q, k, v, causal=causal,
-                                                 window=window)
-            tol = F32 if dtype == torch.float32 else BF16
-            torch.testing.assert_close(got.float(), want.float(), **tol)
-
-    def test_ssd_kernel_matches_plain(self):
-        if not torch.cuda.is_available():
-            pytest.skip("the CUDA kernel has no CPU mode; needs a CUDA card")
-        for seed, (shape, chunk, dtype) in enumerate([
-                ((2, 256, 4, 64, 2, 64), 64, torch.float32),
-                ((1, 96, 2, 32, 1, 16), 32, torch.float32),
-                ((2, 300, 80, 64, 1, 64), 256, torch.bfloat16),
-                ((1, 300, 4, 128, 2, 128), 256, torch.bfloat16)]):
-            args = [_t(a, dtype).cuda() for a in _ssd_inputs(seed, *shape)]
-            before = ssd_ops.LAUNCHES["ssd"]
-            y, st = ssd_ops.ssd(*args, chunk)
-            assert ssd_ops.LAUNCHES["ssd"] == before + 1
-            yr, sr = ssd_ops.ref.ssd(*args, chunk)
-            tol = SSD_TOL if dtype == torch.float32 else BF16
-            torch.testing.assert_close(y.float(), yr.float(), **tol)
-            torch.testing.assert_close(st, sr, **SSD_TOL)
-
-
-    def test_backward_kernels_match_plain(self):
-        if not torch.cuda.is_available():
-            pytest.skip("the CUDA kernel has no CPU mode; needs a CUDA card")
-        for seed, (shape, causal, window, dtype) in enumerate([
-                ((2, 64, 192, 4, 2, 32), False, None, torch.float32),
-                ((1, 192, 96, 2, 2, 32), True, 64, torch.float32),
-                ((1, 300, 300, 32, 32, 80), True, None, torch.bfloat16)]):
-            q, k, v = (_t(a, dtype).cuda() for a in _qkv(seed, *shape))
-            o, lse = flash_ops.ref.flash_attention_fwd(q, k, v, causal=causal,
-                                                       window=window)
-            do = torch.randn_like(o.float()).to(dtype)
-            before = flash_ops.LAUNCHES["flash_attention_bwd"]
-            got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse,
-                                                causal=causal, window=window)
-            assert flash_ops.LAUNCHES["flash_attention_bwd"] == before + 1
-            want = flash_ops.ref.flash_attention_bwd(
-                q, k, v, o, do, lse, causal=causal, window=window)
-            for g, w in zip(got, want):
-                tol = 1e-4 if dtype == torch.float32 else 2e-2
-                scale = float(w.float().abs().max())
-                torch.testing.assert_close(g.float(), w.float(), rtol=tol,
-                                           atol=tol * scale)
-        for seed, (shape, chunk, dtype) in enumerate([
-                ((1, 100, 4, 32, 2, 16), 64, torch.float32),
-                ((1, 300, 80, 64, 1, 64), 256, torch.bfloat16),
-                ((2, 600, 8, 64, 2, 64), 256, torch.bfloat16)]):  # 3 chunks
-            args = [_t(a, dtype).cuda() for a in _ssd_inputs(seed, *shape)]
-            dY = torch.randn(args[0].shape, device="cuda").to(dtype)
-            before = ssd_ops.LAUNCHES["ssd_bwd"]
-            got = ssd_ops.ssd_bwd(*args, chunk, dY)
-            assert ssd_ops.LAUNCHES["ssd_bwd"] == before + 1
-            want = ssd_ops.ref.ssd_bwd(*args, chunk, dY)
-            for g, w in zip(got, want):
-                tol = 1e-4 if dtype == torch.float32 else 2e-2
-                scale = float(w.float().abs().max())
-                torch.testing.assert_close(g.float(), w.float(), rtol=tol,
-                                           atol=tol * scale)
-            if dtype == torch.bfloat16:
-                # through _SSD, which hands the backward the forward's
-                # entering states: the same gradients, bitwise
-                leaves = [a.detach().clone().requires_grad_() for a in args]
-                y, _ = ssd_ops.ssd(*leaves, chunk)
-                saved = torch.autograd.grad(y, leaves, dY)
-                for g, a in zip(got, saved):
-                    assert torch.equal(g, a)
-
-
-@pytest.mark.cuda
-class TestDecodeKernelOnCard:
-    """The decode-attention kernel against the plain version on the same
-    CUDA tensors, and against a float32 computation of the same function
-    (the plain version on the inputs' float32 values: q scaled and p kept
-    in float32).  Tolerances: float32, the kernel and the plain version
-    differ only in the order of float32 sums, 2e-5; bf16, a different
-    order can move a pre-rounding p or output across a bf16 rounding
-    boundary, one or two bf16 ulps of the output (2^-8 relative each), so
-    1e-2; against the float32 function, bf16's roundings of q.scale, p and
-    the output, the flash tests' 2e-2."""
-
-    @staticmethod
-    def _need_card():
-        if not torch.cuda.is_available():
-            pytest.skip("the CUDA kernel has no CPU mode; needs a CUDA card")
-
-    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-    def test_matches_plain(self, dtype):
-        from repro_torch.models.attention import append_kv
-        self._need_card()
-        tdtype = getattr(torch, dtype)
-        for seed, (B, cap, H, K, hd, kind, window) in enumerate(
-                decode_ops.ref.CHECKED):
-            if dtype == "float32" and hd * 4 > decode_ops.MAX_ROW_BYTES:
-                continue
-            args = _decode_case(seed, B, cap, H, K, hd, kind, tdtype, "cuda")
-            before = decode_ops.LAUNCHES["decode_attention"]
-            got = decode_ops.decode_attention(*args, window=window)
-            torch.cuda.synchronize()
-            assert decode_ops.LAUNCHES["decode_attention"] == before + 1
-            assert got.dtype == tdtype and got.shape == args[0].shape
-            want = decode_ops.ref.decode_attention(*args, window=window)
-            tol = F32 if dtype == "float32" else dict(atol=1e-2, rtol=1e-2)
-            torch.testing.assert_close(got.float(), want.float(), **tol)
-            f32 = decode_ops.ref.decode_attention(
-                *(a.float() for a in args[:3]), *args[3:], window=window)
-            tol = F32 if dtype == "float32" else BF16
-            torch.testing.assert_close(got.float(), f32, **tol)
-            # with this token's rows: written bitwise, then attended to
-            q, k, v, kvpos, pos = args
-            new = torch.randn((2, B, 1, K, hd), device="cuda").to(tdtype)
-            k2, v2 = k.clone(), v.clone()
-            append_kv(k2, v2, new[0], new[1], pos)
-            want = decode_ops.ref.decode_attention(q, k2, v2, kvpos, pos,
-                                                   window=window)
-            got = decode_ops.decode_attention(q, k, v, kvpos, pos,
-                                              window=window, k_new=new[0],
-                                              v_new=new[1])
-            assert torch.equal(k, k2) and torch.equal(v, v2)
-            tol = F32 if dtype == "float32" else dict(atol=1e-2, rtol=1e-2)
-            torch.testing.assert_close(got.float(), want.float(), **tol)
-
-    def test_one_token_and_bitwise_repeat(self):
-        """B = 1, and two calls on the same inputs bitwise equal (no
-        atomics decide a sum) at a split cache."""
-        self._need_card()
-        for B, cap in ((1, 1792), (8, 3853)):
-            args = _decode_case(40 + B, B, cap, 16, 16, 128, "fill",
-                                dtype=torch.bfloat16, device="cuda")
-            a = decode_ops.decode_attention(*args)
-            b = decode_ops.decode_attention(*args)
-            assert torch.equal(a, b)
-            torch.testing.assert_close(
-                a.float(), decode_ops.ref.decode_attention(*args).float(),
-                atol=1e-2, rtol=1e-2)
-
-    def test_one_launch_per_layer_in_a_decode_step(self):
-        """A smoke olmoe decode step on the card: every layer's decode
-        attention goes through the kernel, one call each."""
-        self._need_card()
-        from repro_torch.configs import smoke_config
-        from repro_torch.models import decode_step, init_params, prefill
-        cfg = smoke_config("olmoe-1b-7b")
-        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
-                            device="cuda")
-        toks = torch.randint(0, cfg.vocab, (2, 12), dtype=torch.int32,
-                             device="cuda")
-        _, cache = prefill(model, cfg, {"tokens": toks}, capacity=16)
-        before = decode_ops.LAUNCHES["decode_attention"]
-        for t in range(2):
-            decode_step(model, cfg, {"tokens": toks[:, t]}, cache,
-                        torch.full((2,), 12 + t, dtype=torch.int32,
-                                   device="cuda"))
-        torch.cuda.synchronize()
-        assert decode_ops.LAUNCHES["decode_attention"] - before \
-            == 2 * cfg.n_layers
-
-
 # ------------------------------------------- rehearsal of the bf16 kernels
 def _bf(a):
     """Round to bf16 and back to float32 (an operand the kernel rounds)."""
@@ -842,61 +633,3 @@ class TestBf16Rehearsal:
         with pytest.raises(ValueError):
             build.check_tma(8, t=t[1:])
 
-
-@pytest.mark.cuda
-class TestBf16KernelsAtServingWidth:
-    def test_flash(self):
-        """zamba2-2.7b's prefill attention at one request: (1, 2048, 32,
-        80), causal."""
-        if not torch.cuda.is_available():
-            pytest.skip("the CUDA kernel has no CPU mode; needs a CUDA card")
-        q, k, v = (_t(a, torch.bfloat16).cuda()
-                   for a in _qkv(21, 1, 2048, 2048, 32, 32, 80))
-        got = flash_ops.flash_attention(q, k, v, causal=True)
-        want = flash_ops.ref.flash_attention(q, k, v, causal=True)
-        torch.testing.assert_close(got.float(), want.float(), **BF16)
-
-    def test_ssd(self):
-        """zamba2-2.7b's Mamba2 scan at one request: x (1, 2048, 80, 64),
-        G = 1, N = 64, the model's chunk of 256."""
-        if not torch.cuda.is_available():
-            pytest.skip("the CUDA kernel has no CPU mode; needs a CUDA card")
-        args = [_t(a, torch.bfloat16).cuda()
-                for a in _ssd_inputs(22, 1, 2048, 80, 64, 1, 64)]
-        y, st = ssd_ops.ssd(*args, 256)
-        yr, sr = ssd_ops.ref.ssd(*args, 256)
-        torch.testing.assert_close(y.float(), yr.float(), **BF16)
-        torch.testing.assert_close(st, sr, **SSD_TOL)
-
-    def test_flash_bwd(self):
-        """The bf16 attention backward at zamba2-2.7b's training shape:
-        (1, 2048, 32, 80), causal; 2e-2 of each element plus 2e-2 of the
-        tensor's largest."""
-        if not torch.cuda.is_available():
-            pytest.skip("the CUDA kernel has no CPU mode; needs a CUDA card")
-        q, k, v = (_t(a, torch.bfloat16).cuda()
-                   for a in _qkv(23, 1, 2048, 2048, 32, 32, 80))
-        o, lse = flash_ops.ref.flash_attention_fwd(q, k, v, causal=True)
-        do = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
-        got = flash_ops.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
-        want = flash_ops.ref.flash_attention_bwd(q, k, v, o, do, lse,
-                                                 causal=True)
-        for g, w in zip(got, want):
-            scale = float(w.float().abs().max())
-            torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
-                                       atol=2e-2 * scale)
-
-    def test_ssd_bwd(self):
-        """The bf16 SSD backward at zamba2-2.7b's training shape: x (1,
-        2048, 80, 64), G = 1, N = 64, eight chunks of 256."""
-        if not torch.cuda.is_available():
-            pytest.skip("the CUDA kernel has no CPU mode; needs a CUDA card")
-        args = [_t(a, torch.bfloat16).cuda()
-                for a in _ssd_inputs(24, 1, 2048, 80, 64, 1, 64)]
-        dY = torch.randn(args[0].shape, device="cuda").to(torch.bfloat16)
-        got = ssd_ops.ssd_bwd(*args, 256, dY)
-        want = ssd_ops.ref.ssd_bwd(*args, 256, dY)
-        for g, w in zip(got, want):
-            scale = float(w.float().abs().max())
-            torch.testing.assert_close(g.float(), w.float(), rtol=2e-2,
-                                       atol=2e-2 * scale)

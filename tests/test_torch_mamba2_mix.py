@@ -467,10 +467,12 @@ class TestMixOnCard:
         torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                    atol=tol * scale)
 
-    @pytest.mark.parametrize("arch,S", [(ZYPHRA, 3), (ZYPHRA, 257),
-                                        (ZYPHRA, 1024), (ZYPHRA, 1000),
-                                        (MAMBA2, 257), (MAMBA2, 1000)])
-    def test_mix_in_and_out(self, arch, S):
+    @pytest.mark.parametrize("arch,B,S", [
+        (ZYPHRA, 2, 3), (ZYPHRA, 2, 257), (ZYPHRA, 2, 1024),
+        (ZYPHRA, 2, 1000), (MAMBA2, 2, 257), (MAMBA2, 2, 1000),
+        # the zamba2 cell's prefills
+        (ZYPHRA, 8, 768), (ZYPHRA, 8, 1536), (ZYPHRA, 8, 3840)])
+    def test_mix_in_and_out(self, arch, B, S):
         """bf16: within 2e-2 of the scale of the plain route, at least as
         near the float32 computation on the same operands (weights, bias
         and D rounded to bf16 as both routes take them), two calls
@@ -479,7 +481,7 @@ class TestMixOnCard:
         cfg = get_config(arch)
         din, H, G, N = (cfg.d_inner, cfg.ssm_heads, cfg.ssm_groups,
                         cfg.ssm_state)
-        p, zx, Y = ref.case(cfg, 2, S, torch.bfloat16, "cuda", seed=S)
+        p, zx, Y = ref.case(cfg, B, S, torch.bfloat16, "cuda", seed=S)
         args_in = (zx, p.conv_w, p.conv_b, p.dt_bias, p.A_log, din, G, N)
         args_out = (Y, zx, p.conv_w, p.conv_b, p.D, p.norm_scale,
                     cfg.norm_eps)
@@ -513,7 +515,7 @@ class TestMixOnCard:
                                 "mix_out": before["mix_out"] + 2}
 
     @pytest.mark.parametrize("arch,S", [(ZYPHRA, 3), (ZYPHRA, 300),
-                                        (MAMBA2, 257)])
+                                        (ZYPHRA, 768), (MAMBA2, 257)])
     def test_float32_instance(self, arch, S):
         """float32: the plain route's operations in its order, within 1e-5
         of the scale, two calls bitwise equal."""

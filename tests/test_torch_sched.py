@@ -8,8 +8,8 @@ reference's: placements, retries, evictions, starved, doomed,
 unschedulable and makespan exact; wastage and utilization within rtol
 1e-6; fits equal and minimum residuals within 1e-12 relative.  Workloads
 are reference scenarios carried into the port (``load_workflow_trace``),
-so both packages replay the same traces.  The ``cuda``-marked tests hold
-the fused admission and engine on the card against the CPU.
+so both packages replay the same traces.  ``tests/test_torch_sched_card.py``
+holds the fused admission and engine on the card against the CPU.
 """
 
 import numpy as np
@@ -19,7 +19,6 @@ import torch
 from repro.core import AllocationPlan as RPlan
 from repro.core import RetrySpec as RSpec
 from repro.core import ksplus_retry as r_ksplus_retry
-from repro_torch.core.envelope import PAD_START, alloc_at_packed
 from repro.sched import AdmissionState as RAdmission
 from repro.sched import ClusterSim as RSim
 from repro.sched import ElasticPlanner as RPlanner
@@ -43,19 +42,15 @@ from repro_torch.sched import (
     HBMFootprintModel,
     Job,
     MemoryMonitor,
-    Node,
     OffsetCandidate,
     plan_mesh,
     read_rss_gb,
 )
 from repro_torch.workloads import load_workflow_trace
 
+from torch_cases import NODES, _assert_same, _lanes, _nodes
+
 CPU = "cpu"
-NODES = ((0, 48.0), (1, 64.0), (2, 32.0))
-
-
-def _nodes(cls=Node, spec=NODES):
-    return [cls(nid, cap) for nid, cap in spec]
 
 
 def _events(sched):
@@ -97,21 +92,6 @@ def test_fault_validation_same_errors():
 
 
 # --------------------------------------------------------------- admission
-def _lanes(rng, n, K, G, use_dur):
-    starts = np.full((n, K), PAD_START)
-    peaks = np.zeros((n, K))
-    grid = np.linspace(0.0, rng.uniform(30, 120, n), G, axis=1)
-    for i in range(n):
-        k = int(rng.integers(1, K + 1))
-        starts[i, :k] = np.sort(np.concatenate(
-            [[0.0], rng.uniform(1.0, 60.0, k - 1)]))
-        peaks[i, :k] = np.sort(rng.uniform(2.0, 20.0, k))
-        peaks[i, k:] = peaks[i, k - 1]
-    need = alloc_at_packed(starts, peaks, grid)
-    dur = rng.uniform(20.0, 100.0, n) if use_dur else None
-    return starts, peaks, need, grid, dur
-
-
 def _pair(backend, use_dur, rng, n=40, caps=(32.0, 48.0, 40.0), K=3, G=16):
     ref = RAdmission(caps, K=K, G=G, backend="numpy", use_dur=use_dur)
     got = AdmissionState(caps, K=K, G=G, backend=backend, use_dur=use_dur,
@@ -273,18 +253,6 @@ def _multiseg(cls_job, cls_plan, n_jobs=40, seed=0, under_frac=0.25,
                             release_time=0.0 if rel is None
                             else float(rel[j])))
     return jobs
-
-
-def _assert_same(got, want):
-    for field in ("placements", "retries", "evictions", "starved", "doomed",
-                  "unschedulable", "finished", "makespan"):
-        assert getattr(got, field) == getattr(want, field), field
-    np.testing.assert_allclose(got.total_wastage_gbs, want.total_wastage_gbs,
-                               rtol=1e-6)
-    np.testing.assert_allclose(got.avg_utilization, want.avg_utilization,
-                               rtol=1e-6)
-    np.testing.assert_allclose(got.starvation_s, want.starvation_s,
-                               rtol=1e-6)
 
 
 def _port_runs(nodes, jobs_fn, retry, faults=None, **kw):
@@ -538,42 +506,3 @@ def test_monitor_and_footprint_model():
     np.testing.assert_allclose(a.starts, b.starts, rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(a.peaks, b.peaks, rtol=1e-5)
 
-
-# --------------------------------------------------------------- the card
-@pytest.mark.cuda
-class TestOnCard:
-    def test_fused_admission_card_matches_cpu(self):
-        if not torch.cuda.is_available():
-            pytest.skip("needs a CUDA card")
-        for select in ("first", "headroom"):
-            rng = np.random.default_rng(7)
-            lanes = _lanes(rng, 300, 3, 16, select == "first")
-            states = [AdmissionState((48.0, 64.0, 32.0, 96.0), K=3, G=16,
-                                     use_dur=select == "first", device=d)
-                      for d in ("cuda", CPU)]
-            for st in states:
-                st.add_lanes(*lanes)
-            for now, q in ((0.0, range(4)), (5.0, range(4, 300))):
-                card, cpu = (st.drain(now, list(q), select=select)
-                             for st in states)
-                assert card == cpu
-            np.testing.assert_array_equal(
-                states[0].columns(9.0, list(range(300))),
-                states[1].columns(9.0, list(range(300))))
-            np.testing.assert_allclose(states[0].minresid,
-                                       states[1].minresid, rtol=1e-12)
-
-    def test_cluster_fused_card_matches_cpu(self):
-        if not torch.cuda.is_available():
-            pytest.skip("needs a CUDA card")
-        from repro_torch.workloads import scenarios, trace_state
-        wf = scenarios.get("workload_replay", n_tasks=200, seed=0,
-                           device="cuda")
-        cpu_wf = load_workflow_trace(trace_state(wf), device=CPU)
-        before = ops.LAUNCHES["oom_probe"]
-        card = ClusterSim(_nodes(), device="cuda").run(
-            wf.to_jobs(under_frac=0.2), RetrySpec("ksplus"))
-        assert ops.LAUNCHES["oom_probe"] == before + 1
-        cpu = ClusterSim(_nodes(), device=CPU).run(
-            cpu_wf.to_jobs(under_frac=0.2), RetrySpec("ksplus"))
-        _assert_same(card, cpu)

@@ -11,8 +11,8 @@ reductions: the fit tolerance of ``tests/test_torch_methods.py``),
 ``evaluate`` with ``succeeded`` and ``mean_attempts`` exact and
 ``total_gbs`` within rtol 1e-4, ``tune_offset`` with the same best
 candidate and totals within rtol 1e-4, and ``serve_demo`` admitting the
-same batches.  Every server here runs on the CPU (``device="cpu"``); the
-``cuda``-marked test holds the server on the card against it.
+same batches.  Every server here runs on the CPU (``device="cpu"``);
+``tests/test_torch_serve_card.py`` holds the server on the card against it.
 """
 
 import threading
@@ -43,9 +43,9 @@ from repro_torch.serve import (
 from repro_torch.serve.bench import (FAMILIES, build_server, request_tape,
                                      run_saturation, synth_family)
 
+from torch_cases import FIT_TOL, GBS_RTOL, _served
+
 CPU = "cpu"
-FIT_TOL = dict(rtol=1e-5, atol=1e-5)   # tests/test_torch_methods.py:94-95
-GBS_RTOL = 1e-4
 
 
 def _req(payload, t=0.0, family="f", tenant="ten", kind="predict"):
@@ -248,12 +248,6 @@ def _mixed_server(batching, *, tenants=6, seed=0, cls=PredictionServer,
 def _mixed_tape():
     tape = request_tape(96, 6, seed=11)
     return tape + [(t, "kseg", x) for t, _, x in request_tape(24, 6, seed=12)]
-
-
-def _served(srv, tape):
-    futs = [srv.submit("predict", t, f, x) for t, f, x in tape]
-    srv.drain()
-    return [f.result(0) for f in futs]
 
 
 class TestServeDispatch:
@@ -631,30 +625,3 @@ class TestMatchesReference:
                 kv_envelope(smoke_config(arch), 2, 64, 16),
                 r_kv(r_smoke(arch), 2, 64, 16))
 
-
-# --------------------------------------------------------------- the card
-@pytest.mark.cuda
-def test_server_on_the_card_matches_cpu():
-    if not torch.cuda.is_available():
-        pytest.skip("the fleet_engine kernel has no CPU mode; needs a card")
-    from repro_torch.kernels.wastage import ops
-    card = build_server(tenants=2, seed=0, device="cuda")
-    cpu = build_server(tenants=2, seed=0, device=CPU)
-    tape = request_tape(64, 2, seed=5)
-    for a, b in zip(_served(card, tape), _served(cpu, tape)):
-        np.testing.assert_allclose(a.starts, b.starts, **FIT_TOL)
-        np.testing.assert_allclose(a.peaks, b.peaks, **FIT_TOL)
-    before = ops.LAUNCHES["fleet_engine"]
-    for family, _ in FAMILIES:
-        got = card.client("tenant0").evaluate(family)
-        want = cpu.client("tenant0").evaluate(family)
-        assert (got.succeeded, got.mean_attempts) == (want.succeeded,
-                                                      want.mean_attempts)
-        np.testing.assert_allclose(got.total_gbs, want.total_gbs,
-                                   rtol=GBS_RTOL)
-        got = card.client("tenant1").tune_offset(family)
-        want = cpu.client("tenant1").tune_offset(family)
-        assert got.best == want.best
-        np.testing.assert_allclose(got.totals, want.totals, rtol=GBS_RTOL)
-    # one launch per evaluate and one per tune group
-    assert ops.LAUNCHES["fleet_engine"] - before == 2 * len(FAMILIES)
