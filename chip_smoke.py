@@ -157,9 +157,11 @@ Phases (any failure exits non-zero; nothing is caught):
    seconds, decode tokens/s, peak memory, each layer's
    ``moe_dropped_frac``; exactly 16 ``flash_attention`` launches per
    prefill, none in decode, no ``ssd``; logits finite; one 4 x 2048
-   prefill and 4 decode steps profiled (``profile_call``: matmul,
-   ``flash_attention``, the dispatch's sorts / gathers / scatters, other;
-   idle share); one MoE
+   prefill profiled (``profile_call``: matmul, ``flash_attention``, the
+   dispatch's sorts / gathers / scatters, other; idle share), and 8 decode
+   steps at B 32, cap 1792 (the decode cell's) profiled eagerly and
+   through ``make_decode_step``'s CUDA graph side by side
+   (``decode_side_by_side``: ms a step, idle share); one MoE
    block called twice at the prefill's shape, bitwise equal (the combine
    has no atomics); (b) olmoe cut to 2 layers, B = 1, S = 300, 4 decode
    steps, card against CPU: in f32 every routing call identical (expert
@@ -231,7 +233,9 @@ Phases (any failure exits non-zero; nothing is caught):
    ``serve_demo``'s loop for 8 x 3840 and 8 x 768 prompts, 4 greedy tokens
    each, after a warm-up: exactly 54 ``ssd`` and 9 ``flash_attention``
    launches per prefill, 9 ``decode_attention`` launches per decode step,
-   every attention call at Zyphra's scale, logits finite.  Then the bf16
+   every attention call at Zyphra's scale, logits finite; 8 decode steps
+   at B 8, cap 3853 profiled eagerly and graphed (``decode_side_by_side``).
+   Then the bf16
    hd-160 ``flash_attention`` forward against its plain version (a batch
    row at a time; the tests' bf16 tolerance, 2e-2) at B 8 x {768, 1536,
    3840}, H 32, and ``decode_attention`` against its plain version at B 8,
@@ -2720,6 +2724,8 @@ def train_bench():
 
 # ------------------------------------------------------------- phase 14
 OLMOE, QWEN_VL, HUBERT = "olmoe-1b-7b", "qwen2-vl-72b", "hubert-xlarge"
+# (B, prompt, cap): the olmoe decode cell's longer batch
+OLMOE_DECODE = (32, 1536, 1792)
 VLM_LAYERS = 4              # qwen2-vl-72b's 80 layers cut to fit one card
 VLM_BATCHES = ((2, 2048),)
 VLM_NEW_TOKENS = 16
@@ -2877,10 +2883,7 @@ def olmoe_serving(rec_flash):
     check_served(records, cfg.n_layers, OLMOE)
     records[0]["prefill_warm"] = warm_prefill(model, cfg, *SERVE_BATCHES[0])
     _, prof = profile_call(prefill_call(model, cfg, *SERVE_BATCHES[0]))
-    steps = 4
-    _, prof_decode = profile_call(decode_call(model, cfg, *SERVE_BATCHES[0],
-                                              steps))
-    prof_decode.update(steps=steps, ms_per_step=prof_decode["wall_ms"] / steps)
+    prof_decode = decode_side_by_side(model, cfg, *OLMOE_DECODE)
     # the combine has no atomics: one block twice at the prefill's shape
     blk = model.blocks[0].moe
     x = torch.randn((*SERVE_BATCHES[0], cfg.d_model), device="cuda",
@@ -2902,23 +2905,44 @@ def olmoe_serving(rec_flash):
             "block_bitwise": bitwise}
 
 
-def decode_call(model, cfg, Bsz, S, steps=4):
-    """``steps`` greedy decode steps after a ``Bsz`` x ``S`` prefill (run
-    now), to call."""
+def decode_side_by_side(model, cfg, Bsz, S, cap, steps=8):
+    """``steps`` greedy decode steps after a ``Bsz`` x ``S`` prefill with
+    capacity ``cap``, profiled (``profile_call``) eagerly
+    (``models.decode_step``) and through ``make_decode_step``'s graph
+    (captured and replayed once before, on a copy of the cache), each
+    from the prefill's cache; each record gains ``ms_per_step``."""
+    from repro_torch.models import decode_step
     from repro_torch.runtime import make_decode_step, make_prefill_step
     toks = torch.as_tensor(np.random.default_rng(4).integers(
         0, cfg.vocab, (Bsz, S)), dtype=torch.int32, device="cuda")
-    logits, cache = make_prefill_step(cfg, capacity=S + steps)(
+    logits, cache = make_prefill_step(cfg, capacity=cap)(
         model, {"tokens": toks})
-    decode = make_decode_step(cfg)
+    first = logits[:, -1].argmax(-1)
+    del logits
 
-    def run():
-        tok = logits[:, -1].argmax(-1)
+    def run(step, cache):
+        tok = first
         for t in range(steps):
             pos = torch.full((Bsz,), S + t, dtype=torch.int32, device="cuda")
-            out, _ = decode(model, {"tokens": tok}, cache, pos)
+            out, cache = step(model, {"tokens": tok}, cache, pos)
             tok = out[:, -1].argmax(-1)
-    return run
+        return tok
+
+    graphed = make_decode_step(cfg)
+    run(graphed, {k: v.clone() for k, v in cache.items()})  # capture
+    tok_graph, graph = profile_call(lambda: run(
+        graphed, {k: v.clone() for k, v in cache.items()}))
+    del graphed
+    tok_eager, eager = profile_call(lambda: run(
+        lambda m, b, c, p: decode_step(m, cfg, b, c, p), cache))
+    out = {"shape": [Bsz, S, cap], "steps": steps,
+           "same_tokens": bool(torch.equal(tok_graph, tok_eager))}
+    for name, prof in (("eager", eager), ("graph", graph)):
+        prof["ms_per_step"] = prof["wall_ms"] / steps
+        out[name] = prof
+    del cache
+    torch.cuda.empty_cache()
+    return out
 
 
 def olmoe_card_vs_cpu(seed=1, S=300, steps=4):
@@ -3162,7 +3186,7 @@ def families(kernels, err):
     log(f"phase 14: {OLMOE} main-path launches {a['launches']}; one MoE "
         f"block twice at {SERVE_BATCHES[0]} bf16: bitwise equal; prefill "
         f"profile " + json.dumps(a["profile"]))
-    log(f"phase 14: {OLMOE} decode profile " + json.dumps(
+    log(f"phase 14: {OLMOE} decode steps, eager and graphed " + json.dumps(
         a["profile_decode"]))
     b = olmoe_card_vs_cpu()
     log(f"phase 14: {OLMOE} 2 layers card == cpu: f32 routing identical at "
@@ -3603,6 +3627,8 @@ def zyphra_serving():
     if scales != {cfg.attn_scale}:
         raise AssertionError(f"{ZYPHRA}: attention scales {scales}, want "
                              f"{cfg.attn_scale}")
+    prof_decode = decode_side_by_side(model, cfg, ZYPHRA_B,
+                                      ZYPHRA_PROMPTS[-1], ZYPHRA_CAP)
     del model
     torch.cuda.empty_cache()
     return cfg, {"records": records,
@@ -3612,7 +3638,8 @@ def zyphra_serving():
                               "decode_attention":
                                   dops.LAUNCHES["decode_attention"]},
                  "flash_calls": sorted(map(str, flash.seen)),
-                 "decode_calls": sorted(map(str, decode.seen))}
+                 "decode_calls": sorted(map(str, decode.seen)),
+                 "profile_decode": prof_decode}
 
 
 def zyphra_flash(cfg, err):
@@ -3708,6 +3735,8 @@ def zyphra_phase(kernels, err):
     log(f"phase 17: {ZYPHRA} main-path launches {a['launches']}; every "
         f"attention call at scale {cfg.attn_scale}: flash_attention "
         f"{a['flash_calls']}, decode_attention {a['decode_calls']}")
+    log(f"phase 17: {ZYPHRA} decode steps, eager and graphed "
+        + json.dumps(a["profile_decode"]))
     flash = zyphra_flash(cfg, err)
     for e in flash:
         log(f"phase 17: flash_attention {e['shape']} scale {e['scale']:.6g}:"

@@ -73,10 +73,11 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     if sum(sections) != hd // 2:
         raise ValueError(f"M-RoPE sections {sections} must sum to {hd // 2}")
     inv = rope_frequencies(hd, theta, x.device)
-    # the section (0, 1 or 2) of each rotary dimension (made on the host:
-    # its length is known without reading a tensor)
-    sec_id = torch.tensor([i for i, n in enumerate(sections)
-                           for _ in range(n)], device=x.device)
+    # the section (0, 1 or 2) of each rotary dimension, made on the device
+    # (no host copy, so a CUDA graph can capture it)
+    dims = torch.arange(hd // 2, device=x.device)
+    sec_id = (dims >= sections[0]).long() \
+        + (dims >= sections[0] + sections[1]).long()
     pos = positions3.float()[..., sec_id]                  # (B, S, hd/2)
     ang = pos * inv
     cos = torch.cos(ang)[:, :, None, :]
